@@ -1,9 +1,18 @@
 """Chip smoke test of the PyTorch port: builds the Hopper kernels, holds
-each against its plain-torch version at the main path's shapes, runs
-full-width qwen3-1.7b (28 layers, bf16, seeded random weights) through the
-kernel path against the reference path, then serves 8 requests through
-``ArrowEngineCluster`` (2 instances, Arrow policy, prefill -> decode KV
-migration) on the kernels and checks that every kernel of the path ran.
+each against its plain-torch version at the main paths' shapes, then drives
+three engine paths at full published width (bf16, seeded random weights),
+one model at a time:
+
+  dense  qwen3-1.7b (28 layers): flash_prefill, flash_prefill_dyn,
+         paged_attention
+  ssm    mamba2-370m (48 layers): ssd_scan
+  hybrid recurrentgemma-9b (38 layers): rglru_scan
+
+For each it compares the kernel path's logits with the reference path's on
+the same weights and tokens, then serves 8 requests through
+``ArrowEngineCluster`` (2 instances, Arrow policy, prefill -> decode state
+migration) on the kernels, with every launch count set to 0 just before and
+read just after, and checks that every kernel of that path ran.
 
     python3 chip_smoke.py
 
@@ -14,6 +23,7 @@ any failure; the last line of standard output is the result JSON.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -26,9 +36,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 BF16_TOL = 2e-2          # kernel vs plain, bf16 inputs (tests/test_kernels.py)
+SSD_TOL = 2e-4           # ssd_scan vs the sequential plain version, f32
+RGLRU_TOL = 1e-5         # rglru_scan vs the doubling-scan plain version, f32
 LOGIT_TOL = 5e-2         # model logits, hopper vs reference, x max|ref|
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, H100 SXM at 700 W
+F32_FLOPS = 67e12        # float32 CUDA-core peak (no TF32), H100 SXM
 
 
 def log(obj) -> None:
@@ -70,10 +83,14 @@ def copies(tensors, min_total=160 << 20, cap=64):
     return [tuple(t.clone() for t in tensors) for _ in range(n)]
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def max_err(a, b) -> float:
@@ -84,6 +101,29 @@ def within(got, want, tol=BF16_TOL) -> bool:
     """allclose with atol = rtol = ``tol``, as tests/test_kernels.py."""
     g, w = got.float(), want.float()
     return bool(((g - w).abs() <= tol + tol * w.abs()).all())
+
+
+def report_rows(rows, tol, library):
+    """Log each kernel check and fail on one outside ``tol``; turns the
+    (device_ms, call_ms) pairs into the device times the kernels line
+    carries."""
+    for r in rows:
+        b_ms, b_by = r.pop("bound")
+        call = {k: r[k][1] for k in ("ms", "plain_ms", "library_ms")
+                if r[k] is not None}
+        r.update({k: r[k][0] for k in call})
+        r.update(bound_ms=b_ms, bound_by=b_by, route="cuda")
+        log({"kernel_check": r["name"], "shape": r["shape"],
+             "max_abs_err": r["max_abs_err"],
+             "tol": f"atol=rtol={tol}", "within_tol": r["ok"],
+             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": r["library_ms"], "library": library,
+             "per_call_event_ms": call})
+        if not r.pop("ok"):
+            raise AssertionError(f"{r['name']}: kernel differs from its "
+                                 f"plain version by {r['max_abs_err']}")
+    return rows
 
 
 # ------------------------------------------------------------- kernels
@@ -216,22 +256,92 @@ def check_kernels(cfg):
                            lib_sets, 200),
         bound=bound(nbytes, 4.0 * D * H * live)))
 
-    for r in rows:
-        b_ms, b_by = r.pop("bound")
-        call = {k: r[k][1] for k in ("ms", "plain_ms", "library_ms")}
-        r.update({k: r[k][0] for k in call})
-        r.update(bound_ms=b_ms, bound_by=b_by, route="cuda")
-        log({"kernel_check": r["name"], "shape": r["shape"],
-             "max_abs_err": r["max_abs_err"],
-             "tol": f"atol=rtol={BF16_TOL}", "within_tol": r["ok"],
-             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
-             "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": r["library_ms"], "library": "sdpa",
-             "per_call_event_ms": call})
-        if not r.pop("ok"):
-            raise AssertionError(f"{r['name']}: kernel differs from its "
-                                 f"plain version by {r['max_abs_err']}")
-    return rows
+    return report_rows(rows, BF16_TOL, "sdpa")
+
+
+def check_scan_kernels():
+    """ssd_scan and rglru_scan vs their plain versions on the card, at the
+    main paths' shapes: one 256-token prefill chunk of full-width
+    mamba2-370m (H=32, P=64, N=128, chunk 128) and of recurrentgemma-9b
+    (lru_width 4096), each from a random state; also batch 8, a two-half
+    chunk resume through h0, and a 160-token bucket for rglru_scan (a
+    length the TPU kernel's 128-token tiles refuse). No single PyTorch
+    call computes either function, so library_ms is null."""
+    from repro_torch.kernels import rglru_scan_op, ssd_scan_op
+    from repro_torch.kernels.rglru_scan import rglru_scan_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def ssd_inputs(B, S, H=32, P=64, N=128):
+        return (rnd(B, S, H, P), -rnd(B, S, H).abs() * 0.5,
+                rnd(B, S, H, N, scale=0.3), rnd(B, S, H, N, scale=0.3),
+                rnd(B, H, P, N))
+
+    def rglru_inputs(B, S, W=4096):
+        return -rnd(B, S, W).abs() * 0.3, rnd(B, S, W), rnd(B, W)
+
+    def err_ok(pairs, tol):
+        errs = [max_err(a, b) for a, b in pairs]
+        return max(errs), all(within(a, b, tol) for a, b in pairs)
+
+    Q = 128
+    x, la, Bm, Cm, h0 = main_in = ssd_inputs(1, 256)
+    got = ssd_scan_op(x, la, Bm, Cm, Q, h0=h0)
+    want = ssd_scan_ref(x, la, Bm, Cm, h0)
+    y1, h1 = ssd_scan_op(x[:, :Q], la[:, :Q], Bm[:, :Q], Cm[:, :Q], Q, h0=h0)
+    y2, h2 = ssd_scan_op(x[:, Q:], la[:, Q:], Bm[:, Q:], Cm[:, Q:], Q, h0=h1)
+    b8 = ssd_inputs(8, 256)
+    got8 = ssd_scan_op(*b8[:4], Q, h0=b8[4])
+    want8 = ssd_scan_ref(*b8)
+    torch.cuda.synchronize()
+    err, ok = err_ok(list(zip(got, want)) + list(zip(got8, want8))
+                     + [(torch.cat([y1, y2], 1), got[0]), (h2, got[1])],
+                     SSD_TOL)
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    pairs = Q * (Q + 1) // 2 * (S // Q) * B * H   # causal (i, j) of chunks
+    flops = (2 * pairs * (N + P)                  # C.B^T, then its product
+             + 2 * B * S * H * N * P * 2)         # inter-chunk y, state
+    sets = copies(list(main_in))
+    ssd = dict(
+        name="ssd_scan", wrapper=ssd_scan_op,
+        source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:85",
+        shape=f"x(1,{S},{H},{P}) Bm/Cm(1,{S},{H},{N}) h0 chunk {Q} f32; "
+              f"+ batch 8, + resume from two halves",
+        max_abs_err=err, ok=ok,
+        ms=time_ms(lambda *a: ssd_scan_op(*a[:4], Q, h0=a[4]), sets, 200),
+        plain_ms=time_ms(lambda *a: ssd_scan_ref(*a), sets[:4], 10),
+        library_ms=None,
+        bound=bound(nbytes(*main_in, *got), flops, F32_FLOPS))
+
+    la, gt, h0 = main_in = rglru_inputs(1, 256)
+    got = rglru_scan_op(la, gt, h0)
+    want = rglru_scan_ref(la, gt, h0)
+    pairs = list(zip(got, want))
+    for B, S in ((1, 160), (8, 256)):
+        a = rglru_inputs(B, S)
+        pairs += list(zip(rglru_scan_op(*a), rglru_scan_ref(*a)))
+    torch.cuda.synchronize()
+    err, ok = err_ok(pairs, RGLRU_TOL)
+    sets = copies(list(main_in))
+    rglru = dict(
+        name="rglru_scan", wrapper=rglru_scan_op,
+        source="src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan/rglru_scan.py:60",
+        shape="log_a/gated(1,256,4096) h0 f32; + (1,160,4096), (8,256,4096)",
+        max_abs_err=err, ok=ok,
+        ms=time_ms(lambda *a: rglru_scan_op(*a), sets, 200),
+        plain_ms=time_ms(lambda *a: rglru_scan_ref(*a), sets, 50),
+        library_ms=None,
+        bound=bound(nbytes(*main_in, *got), 2.0 * la.numel(), F32_FLOPS))
+    return report_rows([ssd], SSD_TOL, None) \
+        + report_rows([rglru], RGLRU_TOL, None)
 
 
 def check_sampler():
@@ -283,19 +393,61 @@ def check_model(cfg, params, dev="cuda"):
             c, params, cache, dense.embed_tokens(c, params, nxt),
             torch.tensor([S + Sq], device=dev))
         out[impl] = (l_seq, l_chunk, l_dec)
-    for name, ref, got in zip(("forward_seq", "prefill_chunk",
-                               "decode_step"), out["reference"],
-                              out["hopper"]):
+    compare_logits(cfg, ("forward_seq", "prefill_chunk", "decode_step"), out)
+
+
+def compare_logits(cfg, names, out) -> None:
+    """Hopper vs reference logits: max |diff| within LOGIT_TOL of max |ref|
+    (bf16 activations through every layer, rounded at other points on the
+    two paths), with the argmax agreement reported beside it."""
+    for name, ref, got in zip(names, out["reference"], out["hopper"]):
         scale = float(ref.float().abs().max())
         err = max_err(got, ref)
         agree = float((got.float().argmax(-1) == ref.float().argmax(-1))
                       .float().mean())
-        log({"model_check": name, "shape": list(got.shape),
-             "max_abs_err": err, "max_abs_ref": scale,
-             "tol": LOGIT_TOL * scale, "argmax_agreement": agree})
+        log({"model_check": name, "arch": cfg.arch_id,
+             "shape": list(got.shape), "max_abs_err": err,
+             "max_abs_ref": scale, "tol": LOGIT_TOL * scale,
+             "argmax_agreement": agree})
         if not (torch.isfinite(got).all() and err <= LOGIT_TOL * scale):
-            raise AssertionError(f"{name}: hopper logits differ from the "
-                                 f"reference by {err} (scale {scale})")
+            raise AssertionError(f"{cfg.arch_id} {name}: hopper logits "
+                                 f"differ from the reference by {err} "
+                                 f"(scale {scale})")
+
+
+def check_recurrent_model(cfg, params, dev="cuda"):
+    """Full-width prefill_chunk logits of a constant-state family (ssm,
+    hybrid) with its scan kernel vs the reference scan, on the same weights
+    and tokens: a whole 256-token chunk from a zero state, a second chunk
+    of 200 real tokens padded to 256 (state resumed through h0), then a
+    decode step from the carried state."""
+    from repro_torch.models import hybrid, ssm
+    model = ssm if cfg.family == "ssm" else hybrid
+    dev = torch.device(dev)
+    rng = np.random.default_rng(4)
+    Sq, n2, C = 256, 200, 1024
+
+    def toks(n):
+        return torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(1, n))
+                                .astype(np.int32)).to(dev)
+
+    chunks, nxt = (toks(Sq), toks(Sq)), toks(1)
+    out = {}
+    for impl in ("reference", "hopper"):
+        c = cfg.replace(attn_impl=impl)
+        cache = model.init_cache(c, 1, C, device=dev)
+        l1, cache = model.prefill_chunk(
+            c, params, cache, model.embed_tokens(c, params, chunks[0]), 0,
+            valid_len=Sq)
+        l2, cache = model.prefill_chunk(
+            c, params, cache, model.embed_tokens(c, params, chunks[1]), Sq,
+            valid_len=n2)
+        l3, _ = model.decode_step(
+            c, params, cache, model.embed_tokens(c, params, nxt),
+            torch.tensor([Sq + n2], device=dev))
+        out[impl] = (l1, l2[:, :n2], l3)
+    compare_logits(cfg, ("prefill_chunk", "prefill_chunk_resume",
+                         "decode_step"), out)
 
 
 # --------------------------------------------------------------- serve
@@ -323,14 +475,15 @@ def check_streams(cfg, handles) -> None:
             raise AssertionError(f"rid {h.rid}: bad stream {toks}")
 
 
-def serve(cfg, params, dev="cuda"):
-    """The port's main path: ArrowEngineCluster on the kernels, 8 requests
+def serve(cfg, params, expect, dev="cuda"):
+    """One engine path: ArrowEngineCluster on the kernels, 8 requests
     (4 greedy, 4 sampled), prefill on instance 0, decode after migration.
-    Returns the cluster and the kernels' launch counts of this run."""
+    Every launch count is set to 0 just before and read just after; each
+    wrapper of ``expect`` (the path's kernels) must have launched. Returns
+    the cluster and the launch counts of this run."""
     from repro_torch.core import SLO
     from repro_torch.engine import ArrowEngineCluster
-    from repro_torch.kernels import (WRAPPERS, launch_counts,
-                                     reset_launch_counts)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
 
     rng = np.random.default_rng(11)
     reset_launch_counts()
@@ -345,12 +498,15 @@ def serve(cfg, params, dev="cuda"):
     report = cluster.drain(timeout=600.0)
     t_serve = time.perf_counter() - t1
     counts = launch_counts()
-    log(f"[serve] {report.summary()}")
-    log({"serve": {"finished": report.n_finished, "requests": len(handles),
-                   "prompt_lens": lens,
-                   "migrations": len(cluster.migration_log),
-                   "migrated_bytes": sum(m["bytes"]
-                                         for m in cluster.migration_log),
+    mig = [m["bytes"] for m in cluster.migration_log]
+    log(f"[serve {cfg.arch_id}] {report.summary()}")
+    log({"serve": {"arch": cfg.arch_id, "finished": report.n_finished,
+                   "requests": len(handles), "prompt_lens": lens,
+                   "ttft_p50_s": report.percentile("ttft", 0.5),
+                   "ttft_p90_s": report.percentile("ttft", 0.9),
+                   "tpot_p90_s": report.percentile("tpot", 0.9),
+                   "migrations": len(mig), "migrated_bytes": sum(mig),
+                   "migrated_bytes_per_request": sorted(set(mig)),
                    "init_s": t_init, "serve_s": t_serve,
                    "output_tok_per_s": 32 * len(handles) / t_serve,
                    "launches": counts}})
@@ -358,16 +514,19 @@ def serve(cfg, params, dev="cuda"):
         raise AssertionError(f"only {report.n_finished}/{len(handles)} "
                              "requests finished")
     check_streams(cfg, handles)
-    if len(cluster.migration_log) < 1:
-        raise AssertionError("no KV migration happened")
-    idle = [w.__name__ for w in WRAPPERS if w.launches == 0]
+    if not mig:
+        raise AssertionError("no state migration happened")
+    if cfg.family != "dense" and len(set(mig)) != 1:
+        raise AssertionError(f"{cfg.family} migration payloads differ in "
+                             f"size across context lengths: {sorted(mig)}")
+    idle = [w.__name__ for w in expect if counts[w.__name__] == 0]
     if idle:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{idle}")
+        raise AssertionError(f"kernels never launched on the {cfg.arch_id} "
+                             f"path: {idle}")
     return cluster, counts
 
 
-def profile_round(cluster, cfg):
+def profile_round(cluster, cfg, tags):
     """A second round of 8 requests on the same cluster under torch.profiler
     (device activity only): the device's busy time against the wall time
     of the round, and device time by kernel."""
@@ -384,11 +543,24 @@ def profile_round(cluster, cfg):
     busy_ms = sum(r[1] for r in rows)
     ours = {tag: [sum(r[1] for r in rows if tag in r[0]),
                   sum(r[2] for r in rows if tag in r[0])]
-            for tag in ("flash_fwd", "paged_decode")}
-    log({"profile": {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+            for tag in tags}
+    log({"profile": {"arch": cfg.arch_id, "wall_ms": wall * 1e3,
+                     "device_busy_ms": busy_ms,
                      "idle_share": 1.0 - busy_ms / (wall * 1e3),
                      "kernels_ms_calls": ours,
                      "top": [[k[:80], ms, n] for k, ms, n in rows[:10]]}})
+
+
+def paths():
+    """(arch, the kernels its engine path must launch, the profiler tags of
+    those kernels) for each path, in the order they run."""
+    from repro_torch.kernels import (flash_chunk_op, flash_seq_op,
+                                     paged_attention_op, rglru_scan_op,
+                                     ssd_scan_op)
+    return (("qwen3-1.7b", (flash_seq_op, flash_chunk_op, paged_attention_op),
+             ("flash_fwd", "paged_decode")),
+            ("mamba2-370m", (ssd_scan_op,), ("ssd_scan",)),
+            ("recurrentgemma-9b", (rglru_scan_op,), ("rglru_scan",)))
 
 
 def main() -> int:
@@ -418,17 +590,26 @@ def main() -> int:
          "libs": {k: str(v.relative_to(ROOT)) if ROOT in v.parents
                   else str(v) for k, v in libs.items()}})
 
-    cfg = get_config("qwen3-1.7b")          # full width, bf16, 28 layers
-    rows = check_kernels(cfg)
+    rows = check_kernels(get_config("qwen3-1.7b")) + check_scan_kernels()
     check_sampler()
-    g = torch.Generator(device="cuda").manual_seed(0)
-    params = init_params(cfg, g, "cuda")
-    log({"params": sum(p.numel() for p in params.values()),
-         "param_bytes": sum(p.numel() * p.element_size()
-                            for p in params.values())})
-    check_model(cfg, params)
-    cluster, counts = serve(cfg, params)
-    profile_round(cluster, cfg)
+    counts = {}
+    for arch, expect, tags in paths():
+        cfg = get_config(arch)              # full width, bf16
+        g = torch.Generator(device="cuda").manual_seed(0)
+        params = init_params(cfg, g, "cuda")
+        log({"arch": arch, "layers": cfg.n_layers,
+             "params": sum(p.numel() for p in params.values()),
+             "param_bytes": nbytes(*params.values())})
+        if cfg.family == "dense":
+            check_model(cfg, params)
+        else:
+            check_recurrent_model(cfg, params)
+        cluster, c = serve(cfg, params, expect)
+        counts.update({w.__name__: c[w.__name__] for w in expect})
+        profile_round(cluster, cfg, tags)
+        del cluster, params                 # free before the next model
+        gc.collect()
+        torch.cuda.empty_cache()
 
     log({"kernels": [
         {"name": r["name"], "route": r["route"], "source": r["source"],

@@ -1,8 +1,10 @@
-"""Fused per-instance engine step for the dense family: the whole mixed plan
-(decode batch, then every prefill chunk) as one host call that enqueues its
-device work without a sync, with on-device replayable sampling.
+"""Fused per-instance engine step for the dense, ssm (Mamba-2) and hybrid
+(RecurrentGemma) families: the whole mixed plan (decode batch, then every
+prefill chunk) as one host call that enqueues its device work without a
+sync, with on-device replayable sampling.
 
-The SlotKVCache slabs (``k``, ``v``, ``pos_map``) are updated **in place**
+The decode-state slabs (``SlotKVCache``'s ``k``, ``v``, ``pos_map``; the
+ssm ``conv``/``ssm`` slabs; the hybrid cache dict) are updated **in place**
 (the JAX package donated them to a jitted call). The small per-row step
 arguments — positions, slots, offsets, lengths, sampling parameters — stay
 host numpy arrays: the loop over chunks walks host-side offsets (the JAX
@@ -25,7 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.engine import prng
-from repro_torch.models import dense
+from repro_torch.models import dense, hybrid
+from repro_torch.models import ssm as ssm_models
 
 # ------------------------------------------------------------- sampling
 
@@ -158,9 +161,123 @@ def prefill_place(cfg, params, k, v, pos_map, tokens, slot, length, temp,
                         np.array([rid]), np.array([last]))
 
 
+# ------------------------------------- constant-state families (ssm, hybrid)
+#
+# Same calling convention as the dense entries but over the family's
+# decode-state slabs. Two differences forced by recurrence: the decode batch
+# carries an explicit ``active`` mask (a recurrent update is irreversible,
+# so parked slots keep their old state instead of the dense dummy-write
+# trick: the model writes only the active rows), and chunked prefill passes
+# each chunk's ``valid_len`` into the model so pad positions leave the state
+# untouched.
+
+
+def _active_rows(active, device):
+    """The host bool mask ``active`` (B,) as a long index tensor."""
+    return torch.as_tensor(np.nonzero(np.asarray(active))[0], device=device)
+
+
+def _recurrent_decode(model, cfg, params, cache, tokens, pos, temps, top_ps,
+                      seeds, rids, active):
+    dev = tokens.device
+    x = model.embed_tokens(cfg, params, tokens)
+    logits, _ = model.decode_step(cfg, params, cache, x,
+                                  torch.as_tensor(pos, device=dev),
+                                  active=_active_rows(active, dev))
+    return sample_tokens(cfg, logits[:, 0], temps, top_ps, seeds, rids, pos)
+
+
+def _recurrent_chunks(model, slot_view, cfg, params, toks, slots, offsets,
+                      lens, temps, top_ps, seeds, rids):
+    """Every chunk in order on its slot's batch-1 view (written in place),
+    with ``valid_len`` = the chunk's real length; sampled at the chunk's
+    last real token, keyed by its absolute position."""
+    last_rows = []
+    for i in range(toks.shape[0]):
+        s, ln = int(slots[i]), int(lens[i])
+        x = model.embed_tokens(cfg, params, toks[i:i + 1])
+        logits, _ = model.prefill_chunk(cfg, params, slot_view(s), x,
+                                        int(offsets[i]), valid_len=ln)
+        last_rows.append(logits[0, max(ln - 1, 0)])
+    last_pos = (np.asarray(offsets, np.int64)
+                + np.maximum(np.asarray(lens, np.int64) - 1, 0))
+    return sample_tokens(cfg, torch.stack(last_rows), temps, top_ps, seeds,
+                         rids, last_pos)
+
+
+def _ssm_view(conv, ssm):
+    return lambda s: {"conv": conv[:, s:s + 1], "ssm": ssm[:, s:s + 1]}
+
+
+def ssm_decode_only(cfg, params, conv, ssm, tokens, pos, temps, top_ps,
+                    seeds, rids, active):
+    return _recurrent_decode(ssm_models, cfg, params,
+                             {"conv": conv, "ssm": ssm}, tokens, pos, temps,
+                             top_ps, seeds, rids, active)
+
+
+def ssm_chunks_only(cfg, params, conv, ssm, toks, slots, offsets, lens,
+                    temps, top_ps, seeds, rids):
+    return _recurrent_chunks(ssm_models, _ssm_view(conv, ssm), cfg, params,
+                             toks, slots, offsets, lens, temps, top_ps,
+                             seeds, rids)
+
+
+def ssm_mixed_step(cfg, params, conv, ssm, tokens, pos, dtemps, dtop_ps,
+                   dseeds, drids, active, toks, slots, offsets, lens, ctemps,
+                   ctop_ps, cseeds, crids):
+    dtoks = ssm_decode_only(cfg, params, conv, ssm, tokens, pos, dtemps,
+                            dtop_ps, dseeds, drids, active)
+    ctoks = ssm_chunks_only(cfg, params, conv, ssm, toks, slots, offsets,
+                            lens, ctemps, ctop_ps, cseeds, crids)
+    return torch.cat([dtoks, ctoks])
+
+
+def _hyb_view(cache):
+    def view(s):
+        sub = {"groups": {k: a[:, s:s + 1]
+                          for k, a in cache["groups"].items()},
+               "pos_map": cache["pos_map"][s:s + 1]}
+        if "tail" in cache:
+            sub["tail"] = {k: a[:, s:s + 1] for k, a in cache["tail"].items()}
+        return sub
+    return view
+
+
+def hybrid_decode_only(cfg, params, cache, tokens, pos, temps, top_ps,
+                       seeds, rids, active):
+    return _recurrent_decode(hybrid, cfg, params, cache, tokens, pos, temps,
+                             top_ps, seeds, rids, active)
+
+
+def hybrid_chunks_only(cfg, params, cache, toks, slots, offsets, lens,
+                       temps, top_ps, seeds, rids):
+    return _recurrent_chunks(hybrid, _hyb_view(cache), cfg, params, toks,
+                             slots, offsets, lens, temps, top_ps, seeds,
+                             rids)
+
+
+def hybrid_mixed_step(cfg, params, cache, tokens, pos, dtemps, dtop_ps,
+                      dseeds, drids, active, toks, slots, offsets, lens,
+                      ctemps, ctop_ps, cseeds, crids):
+    dtoks = hybrid_decode_only(cfg, params, cache, tokens, pos, dtemps,
+                               dtop_ps, dseeds, drids, active)
+    ctoks = hybrid_chunks_only(cfg, params, cache, toks, slots, offsets,
+                               lens, ctemps, ctop_ps, cseeds, crids)
+    return torch.cat([dtoks, ctoks])
+
+
+# ---------------------------------------------------- family dispatch
+
 _OPS = {
     "dense": SimpleNamespace(decode_only=decode_only, chunks_only=chunks_only,
                              mixed_step=mixed_step),
+    "ssm": SimpleNamespace(decode_only=ssm_decode_only,
+                           chunks_only=ssm_chunks_only,
+                           mixed_step=ssm_mixed_step),
+    "hybrid": SimpleNamespace(decode_only=hybrid_decode_only,
+                              chunks_only=hybrid_chunks_only,
+                              mixed_step=hybrid_mixed_step),
 }
 
 
@@ -169,5 +286,6 @@ def ops_for(family: str):
     ``op(cfg, params, *slots.slabs(), *step_args) -> tokens``."""
     if family not in _OPS:
         raise NotImplementedError(
-            f"no fused step for family {family!r} yet (dense only)")
+            f"no fused step for family {family!r} yet (dense, ssm and "
+            "hybrid are ported)")
     return _OPS[family]

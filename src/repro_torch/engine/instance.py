@@ -1,7 +1,7 @@
-"""A stateless engine instance: real PyTorch compute (dense-family models),
-a slot-granular KV cache and the Arrow local scheduler. "Stateless" in the
-paper's sense — the instance carries no prefill/decode role; it executes
-whatever sub-requests the global scheduler hands it.
+"""A stateless engine instance: real PyTorch compute (dense, ssm and hybrid
+families), slot-granular decode state and the Arrow local scheduler.
+"Stateless" in the paper's sense — the instance carries no prefill/decode
+role; it executes whatever sub-requests the global scheduler hands it.
 
 Execution model: the LocalScheduler's mixed plan — the full decode batch
 plus every prefill chunk — runs as one fused step that writes the KV slabs
@@ -11,8 +11,10 @@ a CUDA event; ``finalize_step`` performs the step's single device-to-host
 copy and advances the host bookkeeping, so a cluster can dispatch every
 instance before fetching any.
 
-Only the fused step mode is ported; the legacy (pre-fusion) mode and
-self-speculative decoding come in a later slice.
+The decode state is per family (``repro_torch.engine.state_slots``): KV
+rings for dense models, constant-size recurrent state for Mamba-2 and
+RecurrentGemma. Only the fused step mode is ported; the legacy
+(pre-fusion) mode and self-speculative decoding come in a later slice.
 """
 from __future__ import annotations
 
@@ -132,15 +134,12 @@ class EngineInstance:
                  step_mode: str = "fused", run_seed: int = 0,
                  speculate: int = 0, draft_layers: Optional[int] = None,
                  device="cuda"):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense only)")
+                f"no engine decode state for family {cfg.family!r}")
         if step_mode != "fused":
             raise NotImplementedError(
                 "step_mode='legacy' is not ported yet (later slice)")
-        if speculate:
-            raise NotImplementedError(
-                "self-speculative decoding is not ported yet (later slice)")
         self.device = resolve_device(device)
         self.run_seed = int(run_seed)
         self.iid = iid
@@ -151,6 +150,11 @@ class EngineInstance:
         self.speculate = 0
         self.kv = make_state_slots(cfg, n_slots, capacity, self.device)
         self._ops = fs.ops_for(cfg.family)
+        # a rejected draft cannot roll back a recurrent state update, so
+        # constant-state families serve the plain sequential stream
+        if speculate and self.kv.supports_speculation:
+            raise NotImplementedError(
+                "self-speculative decoding is not ported yet (later slice)")
         self.local = LocalScheduler(
             iid, token_budget=chunk_tokens or capacity,
             mixed_chunk_budget=chunk_tokens or 2048,
@@ -208,6 +212,12 @@ class EngineInstance:
         the live positions exact; the pad KV is marked invalid). Raises
         :class:`NoFreeSlots` when the cache is full."""
         S = len(prompt)
+        if self.cfg.family != "dense":
+            # constant-state families prefill via the chunk path: the slot
+            # starts from zero recurrent state (the release invariant) and
+            # the whole prompt scans as one fused chunk
+            return self.run_prefill_chunk(rid, np.asarray(prompt, np.int32),
+                                          0, S)
         S_pad = _bucket32(S, self.capacity)
         padded = np.zeros((S_pad,), np.int32)
         padded[:S] = prompt
@@ -270,6 +280,7 @@ class EngineInstance:
             B = self.kv.n_slots
             tokens = np.zeros((B, 1), np.int32)
             pos = np.zeros((B,), np.int32)
+            active = np.zeros((B,), bool)
             # Inactive-but-occupied slots (e.g. parked awaiting migration)
             # still get a batched dummy write; aim it at the slot's own next
             # position, which any real future decode/chunk overwrites before
@@ -280,8 +291,13 @@ class EngineInstance:
                 s = self.kv.slot_of[rid]
                 tokens[s, 0] = self.last_token[rid]
                 pos[s] = self.kv.len_of[rid]
+                active[s] = True
             dec_args = (self._dev(tokens), pos) \
                 + self._slot_samp_arrays(decode_rids)
+            if self.kv.needs_active_mask:
+                # recurrent state has no harmless dummy-write: parked
+                # slots are masked out inside the fused step instead
+                dec_args += (active,)
         groups: List[Tuple[List[ChunkWork], Any]] = []
         for gi, (Sq, group) in enumerate(self._group_chunks(chunks)):
             n = len(group)

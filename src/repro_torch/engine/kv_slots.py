@@ -23,6 +23,8 @@ class SlotKVCache(StateSlotsBase):
     sizing both apply."""
 
     prefix_reuse = "block"
+    needs_active_mask = False
+    supports_speculation = True
 
     def __init__(self, n_layers: int, n_slots: int, capacity: int,
                  n_kv_heads: int, head_dim: int, dtype=torch.float32,

@@ -1,17 +1,26 @@
 """Per-architecture decode-state slots: the engine's cache contract.
 
 The engine's unit of admission is a *slot*; what a slot holds depends on the
-model family. This slice ports the dense family (``SlotKVCache``: per-token
-KV rings, state O(L) in context, block-granular prefix reuse, migration
-moves tokens x per-token-KV bytes). The constant-state families (Mamba-2,
-RecurrentGemma) come with their slices.
+model family:
+
+  dense   — per-token KV rings (``SlotKVCache``): state grows O(L) with
+            context, prefix reuse works at block granularity, migration
+            moves tokens x per-token-KV bytes.
+  ssm     — Mamba-2 ``{"conv", "ssm"}`` slabs (``SSMStateSlots``): state is
+            O(1) in context, so migration is constant-cost and "prefix"
+            reuse only makes sense for an exact full-length match (the
+            recurrent state is a lossy summary — there is no per-position
+            KV to truncate).
+  hybrid  — RecurrentGemma conv/h recurrences plus fixed local-attention
+            rings (``RecurrentStateSlots``): same O(1) economics as ssm.
 
 Every implementation keeps the host bookkeeping (free list, rid -> slot /
 context length / sampling params) and the device invariants the fused step
-relies on: slot operations write the preallocated slabs in place, and
-``extract_state``/``place_state`` give the cluster a family-agnostic
-migration transfer (the payload's ``nbytes`` is the real wire cost that
-``RuntimeCore`` records).
+relies on: slot operations write the preallocated slabs in place, a
+released slot's recurrent state is zeroed (so the next occupant chunks from
+a zero state), and ``extract_state``/``place_state`` give the cluster a
+family-agnostic migration transfer (the payload's ``nbytes`` is the real
+wire cost that ``RuntimeCore`` records).
 """
 from __future__ import annotations
 
@@ -29,6 +38,11 @@ class StateSlotsBase:
     #: "block" — per-token KV, any block-aligned prefix is reusable;
     #: "exact" — constant-size recurrent state, only a full-length match.
     prefix_reuse: str = "exact"
+    #: recurrent updates are irreversible, so parked slots must be masked
+    #: out of the fused decode instead of receiving dummy writes, and
+    #: rejected speculation cannot roll the state back.
+    needs_active_mask: bool = True
+    supports_speculation: bool = False
 
     def __init__(self, n_slots: int, capacity: int):
         self.n_slots = n_slots
@@ -83,8 +97,104 @@ class StateSlotsBase:
         """Inverse of :meth:`extract_state` into ``rid``'s allocated slot."""
         raise NotImplementedError
 
+    def state_bytes(self, rid: int) -> int:
+        """Bytes a migration of ``rid`` moves right now."""
+        raise NotImplementedError
+
     def copy_prefix(self, src_rid: int, dst_rid: int, length: int) -> None:
         raise NotImplementedError
+
+
+class _FixedStateSlots(StateSlotsBase):
+    """Constant-size per-slot state held as named slabs, each with its slot
+    axis; ``_leaves`` walks them in the migration payload's order."""
+
+    def _leaves(self):
+        """(tensor, slot axis) of every slab, in payload order."""
+        raise NotImplementedError
+
+    def _clear_slot(self, slot: int) -> None:
+        for a, axis in self._leaves():
+            a.select(axis, slot).zero_()
+
+    def extract_state(self, rid: int):
+        s = self.slot_of[rid]
+        payload = []
+        for a, axis in self._leaves():
+            row = a.select(axis, s)
+            # a contiguous host copy, never a view of the slab
+            payload.append(torch.empty(row.shape, dtype=row.dtype)
+                           .copy_(row))
+        return payload, self.len_of[rid]
+
+    def place_state(self, rid: int, payload, length: int) -> None:
+        s = self.slot_of[rid]
+        for (a, axis), row in zip(self._leaves(), payload):
+            a.select(axis, s).copy_(torch.as_tensor(row))
+        self.len_of[rid] = length
+
+    def state_bytes(self, rid: int) -> int:
+        return sum(a.numel() * a.element_size()
+                   for a, _ in self._leaves()) // self.n_slots
+
+    def copy_prefix(self, src_rid: int, dst_rid: int, length: int) -> None:
+        # exact-prefix only: the recurrent state *is* the whole context
+        if length != self.len_of[src_rid]:
+            raise ValueError(f"a recurrent state copies whole contexts "
+                             f"only: length {length} != "
+                             f"{self.len_of[src_rid]}")
+        s, d = self.slot_of[src_rid], self.slot_of[dst_rid]
+        for a, axis in self._leaves():
+            a.select(axis, d).copy_(a.select(axis, s))
+        self.len_of[dst_rid] = length
+
+
+class SSMStateSlots(_FixedStateSlots):
+    """Fixed-size ``{"conv": (L, B, W-1, Ch), "ssm": (L, B, H, P, N)}``
+    slabs — O(1) bytes per slot regardless of context length."""
+
+    def __init__(self, cfg: ModelConfig, n_slots: int, capacity: int,
+                 device="cpu"):
+        super().__init__(n_slots, capacity)
+        from repro_torch.models import ssm
+        cache = ssm.init_cache(cfg, n_slots, device=device)
+        self.conv = cache["conv"]
+        self.ssm = cache["ssm"]
+
+    def slabs(self):
+        return self.conv, self.ssm
+
+    def _leaves(self):
+        return ((self.conv, 1), (self.ssm, 1))
+
+
+class RecurrentStateSlots(_FixedStateSlots):
+    """The whole hybrid decode cache with batch == ``n_slots``: conv/h
+    recurrences plus the fixed-size local-attention k/v rings and their
+    ``pos_map``. Rings are bounded by the local window, so state is O(1) in
+    context length, same as ssm."""
+
+    def __init__(self, cfg: ModelConfig, n_slots: int, capacity: int,
+                 device="cpu"):
+        super().__init__(n_slots, capacity)
+        from repro_torch.models import hybrid
+        self.cache = hybrid.init_cache(cfg, n_slots, capacity, device=device)
+
+    def slabs(self):
+        return (self.cache,)
+
+    def _leaves(self):
+        """The JAX package's walk: sorted group keys, pos_map, sorted tail
+        keys — so a payload's bytes (and CRC) match the JAX instance's."""
+        c = self.cache
+        out = [(c["groups"][k], 1) for k in sorted(c["groups"])]
+        out.append((c["pos_map"], 0))
+        out += [(c["tail"][k], 1) for k in sorted(c.get("tail", {}))]
+        return out
+
+    def _clear_slot(self, slot: int) -> None:
+        super()._clear_slot(slot)
+        self.cache["pos_map"][slot] = -1
 
 
 def make_state_slots(cfg: ModelConfig, n_slots: int, capacity: int,
@@ -96,12 +206,8 @@ def make_state_slots(cfg: ModelConfig, n_slots: int, capacity: int,
         return SlotKVCache(cfg.n_layers, n_slots, capacity, cfg.n_kv_heads,
                            cfg.head_dim_, torch_dtype(cfg.dtype), device)
     if cfg.family == "ssm":
-        raise NotImplementedError(
-            "SSMStateSlots (Mamba-2) is not ported yet: it comes with the "
-            "ssd_scan slice")
+        return SSMStateSlots(cfg, n_slots, capacity, device)
     if cfg.family == "hybrid":
-        raise NotImplementedError(
-            "RecurrentStateSlots (RecurrentGemma) is not ported yet: it "
-            "comes with the rglru_scan slice")
+        return RecurrentStateSlots(cfg, n_slots, capacity, device)
     raise NotImplementedError(f"no decode-state slots for family "
                               f"{cfg.family!r}")

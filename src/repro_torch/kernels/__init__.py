@@ -8,12 +8,20 @@ allocation, launch counting; plain torch on CPU tensors) and ``ref.py``
   flash_prefill   — causal GQA flash attention for whole-prompt and chunked
                     prefill (runtime query offset, optional sliding window)
   paged_attention — single-query decode attention over a paged KV pool
+                    (dense family)
+  ssd_scan        — the Mamba-2 SSD chunked scan of every prefill chunk
+                    (ssm family)
+  rglru_scan      — the RG-LRU recurrence of every prefill chunk (hybrid
+                    family)
 """
 from repro_torch.kernels.flash_prefill import (flash_chunk_op,  # noqa: F401
                                                flash_seq_op)
 from repro_torch.kernels.paged_attention import paged_attention_op  # noqa: F401
+from repro_torch.kernels.rglru_scan import rglru_scan_op  # noqa: F401
+from repro_torch.kernels.ssd_scan import ssd_scan_op  # noqa: F401
 
-WRAPPERS = (flash_seq_op, flash_chunk_op, paged_attention_op)
+WRAPPERS = (flash_seq_op, flash_chunk_op, paged_attention_op, ssd_scan_op,
+            rglru_scan_op)
 
 
 def reset_launch_counts() -> None:

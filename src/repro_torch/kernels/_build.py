@@ -27,6 +27,8 @@ SOURCES = {
     "flash_prefill": _HERE / "flash_prefill" / "csrc" / "flash_prefill.cu",
     "paged_attention": (_HERE / "paged_attention" / "csrc"
                         / "paged_attention.cu"),
+    "ssd_scan": _HERE / "ssd_scan" / "csrc" / "ssd_scan.cu",
+    "rglru_scan": _HERE / "rglru_scan" / "csrc" / "rglru_scan.cu",
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,11 +1,16 @@
 """Serving launcher of the PyTorch port: the real-compute Arrow cluster in
 engine mode, on the card by default (``--device cuda``) or on the CPU
 (``--device cpu``), at the architecture's smoke-sized config as the JAX
-launcher's engine mode serves it. ``--attn-impl hopper`` routes attention
-through the hand-written Hopper kernels; ``reference`` runs plain torch.
+launcher's engine mode serves it: dense archs, Mamba-2 (``--arch
+mamba2-370m``) and RecurrentGemma (``--arch recurrentgemma-9b``).
+``--attn-impl hopper`` routes the serving path through the hand-written
+Hopper kernels (attention for dense archs, ``ssd_scan`` / ``rglru_scan``
+for the recurrent ones); ``reference`` runs plain torch.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
       --attn-impl hopper --requests 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
+      --arch mamba2-370m --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
       --device cpu --trace azure_code --rate 2 --duration 10
 
@@ -107,10 +112,9 @@ def list_policies() -> None:
 def run_engine(args) -> ServeReport:
     from repro_torch.engine import ArrowEngineCluster
     cfg = get_smoke_config(args.arch).replace(attn_impl=args.attn_impl)
-    if cfg.family != "dense":
-        raise SystemExit("the PyTorch port's engine serves dense archs so "
-                         "far; the ssm and hybrid families come with later "
-                         "slices")
+    if cfg.family not in ("dense", "ssm", "hybrid"):
+        raise SystemExit("--mode engine supports dense/ssm/hybrid archs; "
+                         "the other families are not ported yet")
     cluster = ArrowEngineCluster(cfg, n_instances=args.instances,
                                  n_prefill=max(args.instances // 2, 1),
                                  n_slots=8, capacity=256,
@@ -212,7 +216,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", "--model-arch", choices=ARCH_IDS,
                     default="qwen3-1.7b",
                     help="architecture preset (--model-arch is an alias); "
-                         "the PyTorch engine serves the dense family")
+                         "the PyTorch engine serves the dense, ssm and "
+                         "hybrid families")
     ap.add_argument("--instances", type=int, default=2)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--gap", type=float, default=0.05)

@@ -1,4 +1,4 @@
-"""Shared building blocks of the dense model family, in PyTorch: norms, RoPE,
+"""Shared building blocks of the model families, in PyTorch: norms, RoPE,
 the reference GQA attention, masks, the attention projections, MLPs and the
 (un)embedding.
 
@@ -175,6 +175,34 @@ def mlp(cfg: ModelConfig, p, x):
         return (_gelu(x @ p["mlp/w_gate"]) * (x @ p["mlp/w_up"])) \
             @ p["mlp/w_down"]
     return _gelu(x @ p["mlp/w_in"]) @ p["mlp/w_out"]
+
+
+# ------------------------------------------------- recurrent-family helpers
+
+
+def softplus(x):
+    """``jax.nn.softplus`` (logaddexp(x, 0)); torch's F.softplus switches
+    to the identity above a threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def causal_conv(full, w, b, S: int):
+    """Depthwise causal conv of ``full`` (B, S+W-1, Ch) with taps w (W, Ch)
+    -> (B, S, Ch), summed tap by tap in the input dtype as the JAX package
+    does."""
+    out = 0
+    for i in range(w.shape[0]):
+        out = out + full[:, i:i + S] * w[i]
+    return out + b
+
+
+def write_rows(dst, src, rows=None) -> None:
+    """dst[rows] = src[rows] along the batch axis (all rows when None): the
+    in-place state write of a decode step, limited to its active rows."""
+    if rows is None:
+        dst.copy_(src)
+    else:
+        dst[rows] = src[rows]
 
 
 # ----------------------------------------------------------------- embedding

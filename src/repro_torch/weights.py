@@ -1,14 +1,23 @@
-"""Parameters of the dense family as a flat dict of tensors.
+"""Parameters of the dense, ssm (Mamba-2) and hybrid (RecurrentGemma)
+families as a flat dict of tensors.
 
 Leaves are keyed by the same ``a/b/c`` paths the JAX package's checkpoint
 flattening uses (``tok/embed``, ``layers/attn/wq``, ``final_norm/scale``,
-...), and per-layer leaves keep the stacked leading layer axis, so one dict
-describes the whole model and a layer is a view ``t[i]`` of each leaf.
+``groups/sub0_rglru/rglru/w_a``, ...), and stacked leaves keep their leading
+layer (or group) axis, so one dict describes the whole model and a layer is
+a view ``t[i]`` of each leaf.
+
+Most leaves are in ``cfg.dtype``; a few are float32 whatever it is, as in
+the JAX package: ``A_log``, ``D`` and ``dt_bias`` of Mamba-2, ``b_a``,
+``b_i`` and ``lam`` of the RG-LRU. ``param_shapes`` lists each leaf's path,
+shape and dtype.
 
 ``init_params`` makes parameters from a ``torch.Generator`` with the JAX
-package's shapes and scales (normal x 0.02 for matrices, zeros for RMSNorm
-scales, which are applied as ``1 + w``). ``from_jax_params`` carries a JAX
-params pytree (already on the host as numpy arrays) across bit for bit.
+package's shapes and init rules (normal x 0.02 for matrices, x 0.2 for the
+causal convolutions, zeros for RMSNorm scales, which are applied as
+``1 + w``, and the fixed ``A_log``, ``D``, ``dt_bias`` and ``lam``).
+``from_jax_params`` carries a JAX params pytree (already on the host as
+numpy arrays) across bit for bit, each leaf in its own dtype.
 """
 from __future__ import annotations
 
@@ -77,7 +86,7 @@ def from_tensors(flat: Dict[str, torch.Tensor], cfg: ModelConfig,
     """Check a flat ``a/b/c``-keyed dict against ``cfg``'s parameter
     shapes and move it to ``device``."""
     out = {k: v.to(device) for k, v in flat.items()}
-    expected = dict(param_shapes(cfg))
+    expected = {path: shape for path, shape, _ in param_shapes(cfg)}
     if set(out) != set(expected):
         raise ValueError(f"param paths differ from {cfg.arch_id}'s: "
                          f"{sorted(set(out) ^ set(expected))}")
@@ -88,61 +97,146 @@ def from_tensors(flat: Dict[str, torch.Tensor], cfg: ModelConfig,
     return out
 
 
-def param_shapes(cfg: ModelConfig):
-    """(path, shape) of every leaf of the dense family, in JAX init order."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
-    L, d, hd = cfg.n_layers, cfg.d_model, cfg.head_dim_
-    shapes = [("tok/embed", (cfg.padded_vocab, d))]
-    if not cfg.tie_embeddings:
-        shapes.append(("tok/unembed", (d, cfg.padded_vocab)))
+def _norm(cfg, prefix, lead, d, dtype):
+    out = [(f"{prefix}/scale", lead + (d,), dtype)]
+    if cfg.norm != "rmsnorm":
+        out.append((f"{prefix}/bias", lead + (d,), dtype))
+    return out
 
-    def norm(prefix, lead):
-        out = [(f"{prefix}/scale", lead + (d,))]
-        if cfg.norm != "rmsnorm":
-            out.append((f"{prefix}/bias", lead + (d,)))
-        return out
 
-    shapes += norm("layers/ln1", (L,))
-    shapes += [("layers/attn/wq", (L, d, cfg.n_heads * hd)),
-               ("layers/attn/wk", (L, d, cfg.n_kv_heads * hd)),
-               ("layers/attn/wv", (L, d, cfg.n_kv_heads * hd)),
-               ("layers/attn/wo", (L, cfg.n_heads * hd, d))]
+def _attention(cfg, prefix, lead, dtype):
+    d, hd = cfg.d_model, cfg.head_dim_
+    out = [(f"{prefix}/wq", lead + (d, cfg.n_heads * hd), dtype),
+           (f"{prefix}/wk", lead + (d, cfg.n_kv_heads * hd), dtype),
+           (f"{prefix}/wv", lead + (d, cfg.n_kv_heads * hd), dtype),
+           (f"{prefix}/wo", lead + (cfg.n_heads * hd, d), dtype)]
     if cfg.qk_norm:
-        shapes += [("layers/attn/q_norm", (L, hd)),
-                   ("layers/attn/k_norm", (L, hd))]
-    shapes += norm("layers/ln2", (L,))
+        out += [(f"{prefix}/q_norm", lead + (hd,), dtype),
+                (f"{prefix}/k_norm", lead + (hd,), dtype)]
+    return out
+
+
+def _mlp(cfg, prefix, lead, dtype):
+    d, ff = cfg.d_model, cfg.d_ff
     if cfg.activation in ("swiglu", "geglu"):
-        shapes += [("layers/mlp/w_gate", (L, d, cfg.d_ff)),
-                   ("layers/mlp/w_up", (L, d, cfg.d_ff)),
-                   ("layers/mlp/w_down", (L, cfg.d_ff, d))]
+        return [(f"{prefix}/w_gate", lead + (d, ff), dtype),
+                (f"{prefix}/w_up", lead + (d, ff), dtype),
+                (f"{prefix}/w_down", lead + (ff, d), dtype)]
+    return [(f"{prefix}/w_in", lead + (d, ff), dtype),
+            (f"{prefix}/w_out", lead + (ff, d), dtype)]
+
+
+def _ssm_layers(cfg, dtype):
+    s, d, L = cfg.ssm, cfg.d_model, (cfg.n_layers,)
+    di, H, G, N = s.d_inner(d), s.n_heads(d), s.n_groups, s.d_state
+    conv_ch = di + 2 * G * N
+    f32 = torch.float32
+    return (_norm(cfg, "layers/ln", L, d, dtype)
+            + [("layers/w_in", L + (d, 2 * di + 2 * G * N + H), dtype),
+               ("layers/conv_w", L + (s.d_conv, conv_ch), dtype),
+               ("layers/conv_b", L + (conv_ch,), dtype),
+               ("layers/A_log", L + (H,), f32),
+               ("layers/D", L + (H,), f32),
+               ("layers/dt_bias", L + (H,), f32)]
+            + _norm(cfg, "layers/out_norm", L, di, dtype)
+            + [("layers/w_out", L + (di, d), dtype)])
+
+
+def _hybrid_sub(cfg, kind, prefix, lead, dtype):
+    d = cfg.d_model
+    out = (_norm(cfg, f"{prefix}/ln1", lead, d, dtype)
+           + _norm(cfg, f"{prefix}/ln2", lead, d, dtype)
+           + _mlp(cfg, f"{prefix}/mlp", lead, dtype))
+    if kind == "attn":
+        return out + _attention(cfg, f"{prefix}/attn", lead, dtype)
+    lw = cfg.hybrid.lru_width or d
+    r, f32 = f"{prefix}/rglru", torch.float32
+    return out + [(f"{r}/w_y", lead + (d, lw), dtype),
+                  (f"{r}/w_x", lead + (d, lw), dtype),
+                  (f"{r}/conv_w", lead + (cfg.hybrid.conv_width, lw), dtype),
+                  (f"{r}/conv_b", lead + (lw,), dtype),
+                  (f"{r}/w_a", lead + (lw, lw), dtype),
+                  (f"{r}/b_a", lead + (lw,), f32),
+                  (f"{r}/w_i", lead + (lw, lw), dtype),
+                  (f"{r}/b_i", lead + (lw,), f32),
+                  (f"{r}/lam", lead + (lw,), f32),
+                  (f"{r}/w_o", lead + (lw, d), dtype)]
+
+
+def _hybrid_blocks(cfg, dtype):
+    pat = cfg.hybrid.pattern
+    n_groups, tail = divmod(cfg.n_layers, len(pat))
+    out = []
+    for i, kind in enumerate(pat):
+        out += _hybrid_sub(cfg, kind, f"groups/sub{i}_{kind}", (n_groups,),
+                           dtype)
+    if tail:
+        if any(k != pat[0] for k in pat[:tail]):
+            raise NotImplementedError("heterogeneous tail not supported")
+        out += _hybrid_sub(cfg, pat[0], f"tail/sub0_{pat[0]}", (tail,),
+                           dtype)
+    return out
+
+
+def param_shapes(cfg: ModelConfig):
+    """(path, shape, dtype) of every leaf, in JAX init order."""
+    dtype = torch_dtype(cfg.dtype)
+    L, d = (cfg.n_layers,), cfg.d_model
+    shapes = [("tok/embed", (cfg.padded_vocab, d), dtype)]
+    if not cfg.tie_embeddings:
+        shapes.append(("tok/unembed", (d, cfg.padded_vocab), dtype))
+    if cfg.family == "dense":
+        shapes += (_norm(cfg, "layers/ln1", L, d, dtype)
+                   + _attention(cfg, "layers/attn", L, dtype)
+                   + _norm(cfg, "layers/ln2", L, d, dtype)
+                   + _mlp(cfg, "layers/mlp", L, dtype))
+    elif cfg.family == "ssm":
+        shapes += _ssm_layers(cfg, dtype)
+    elif cfg.family == "hybrid":
+        shapes += _hybrid_blocks(cfg, dtype)
     else:
-        shapes += [("layers/mlp/w_in", (L, d, cfg.d_ff)),
-                   ("layers/mlp/w_out", (L, cfg.d_ff, d))]
-    shapes += norm("final_norm", ())
-    return shapes
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (dense, ssm and "
+            "hybrid are)")
+    return shapes + _norm(cfg, "final_norm", (), d, dtype)
+
+
+_ZERO_LEAVES = ("bias", "q_norm", "k_norm", "conv_b", "dt_bias", "b_a",
+                "b_i")
+
+
+def _init_leaf(cfg, leaf, shape, dtype, generator, device):
+    """One leaf by the JAX package's init rule for its name."""
+    if leaf == "scale":
+        fill = 1.0 if cfg.norm != "rmsnorm" else 0.0
+        return torch.full(shape, fill, dtype=dtype, device=device)
+    if leaf in _ZERO_LEAVES:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if leaf == "D":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if leaf in ("A_log", "lam"):
+        lo, hi = (1.0, 16.0) if leaf == "A_log" else (0.5, 4.0)
+        row = torch.linspace(lo, hi, shape[-1], dtype=torch.float32,
+                             device=device)
+        row = torch.log(row) if leaf == "A_log" else row
+        return row.expand(shape).to(dtype).contiguous()
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (w * (0.2 if leaf == "conv_w" else 0.02)).to(dtype)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> Params:
-    """Seeded parameters: normal x 0.02 for every matrix, zeros for norm
-    scales and biases, ones for layernorm scales. The draws come from
-    ``generator`` (on ``device``'s type), so they differ from JAX's."""
-    dtype = torch_dtype(cfg.dtype)
-    out: Params = {}
-    for path, shape in param_shapes(cfg):
-        leaf = path.rsplit("/", 1)[1]
-        if leaf in ("scale", "bias", "q_norm", "k_norm"):
-            fill = 1.0 if (leaf == "scale" and cfg.norm != "rmsnorm") else 0.0
-            out[path] = torch.full(shape, fill, dtype=dtype, device=device)
-        else:
-            w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                            device=device)
-            out[path] = (w * 0.02).to(dtype)
-    return out
+    """Seeded parameters by the JAX package's init rules (see the module
+    docstring). The draws come from ``generator`` (on ``device``'s type),
+    so they differ from JAX's."""
+    return {path: _init_leaf(cfg, path.rsplit("/", 1)[1], shape, dtype,
+                             generator, device)
+            for path, shape, dtype in param_shapes(cfg)}
 
 
-def layer(params: Params, i: int) -> Params:
-    """Layer ``i``'s leaves keyed by their path below ``layers/`` (views)."""
-    return {k[7:]: v[i] for k, v in params.items() if k.startswith("layers/")}
+def layer(params: Params, i: int, prefix: str = "layers/") -> Params:
+    """Entry ``i`` of the stack under ``prefix`` (``layers/`` or a hybrid
+    ``groups/sub0_rglru/``), keyed by the path below it (views)."""
+    n = len(prefix)
+    return {k[n:]: v[i] for k, v in params.items() if k.startswith(prefix)}

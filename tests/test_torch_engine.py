@@ -221,6 +221,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import sys\n"
         "import repro_torch, repro_torch.engine, repro_torch.launch.serve\n"
         "import repro_torch.kernels, repro_torch.traces\n"
+        "import repro_torch.models.ssm, repro_torch.models.hybrid\n"
+        "import repro_torch.kernels.ssd_scan, repro_torch.kernels.rglru_scan\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

@@ -6,8 +6,11 @@ machine that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Shapes follow tests/test_kernels.py, plus the engine's main-path shapes at
-qwen3-1.7b width. Tolerances: float32 at 2e-5 (other summation orders),
-bfloat16 at 2e-2 (one bf16 rounding of the output).
+qwen3-1.7b, mamba2-370m and recurrentgemma-9b width. Tolerances: attention
+float32 at 2e-5 (other summation orders), bfloat16 at 2e-2 (one bf16
+rounding of the output); the scans those of tests/test_kernels.py, ssd_scan
+at 2e-4 (the chunked form against the sequential recurrence) and
+rglru_scan at 1e-5 (a sequential walk against a doubling scan).
 """
 import numpy as np
 import pytest
@@ -15,7 +18,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (flash_chunk_op, flash_seq_op,  # noqa: E402
-                                 paged_attention_op)
+                                 paged_attention_op, rglru_scan_op,
+                                 ssd_scan_op)
 
 pytestmark = pytest.mark.cuda
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -34,6 +38,25 @@ PAGED_SHAPES = [
     (1, 16, 16, 64, 16, 64, 8),
     (8, 16, 8, 128, 128, 64, 8),  # engine decode, qwen3-1.7b, C=1024
 ]
+SSD_SHAPES = [                    # B, S, H, P, N, Q
+    (2, 64, 3, 32, 16, 16),
+    (1, 128, 2, 64, 128, 32),
+    (2, 32, 1, 16, 8, 32),
+    (1, 256, 32, 64, 128, 128),   # a 256-token chunk, mamba2-370m
+    (8, 256, 32, 64, 128, 128),
+    (1, 96, 2, 40, 16, 16),       # P not a multiple of the 16-column tile
+]
+RGLRU_SHAPES = [                  # B, S, W
+    (2, 64, 256),
+    (1, 128, 512),
+    (3, 32, 128),
+    (1, 256, 4096),               # a 256-token chunk, recurrentgemma-9b
+    (1, 160, 4096),               # a 160-token bucket (S not a tile multiple)
+    (8, 256, 4096),
+    (2, 7, 100),                  # ragged S and W
+]
+SSD_TOL = dict(rtol=2e-4, atol=2e-4)
+RGLRU_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture
@@ -96,9 +119,69 @@ def test_paged_kernel_matches_plain(cuda, B, H, Hk, D, page, P, MP, dtype):
     np.testing.assert_allclose(f32(got), want, **tol(dtype))
 
 
+def ssd_inputs(rng, B, S, H, P, N):
+    x = rng.standard_normal((B, S, H, P), np.float32)
+    la = -np.abs(rng.standard_normal((B, S, H), np.float32)) * 0.5
+    Bm = rng.standard_normal((B, S, H, N), np.float32) * 0.3
+    Cm = rng.standard_normal((B, S, H, N), np.float32) * 0.3
+    h0 = rng.standard_normal((B, H, P, N), np.float32)
+    return [torch.from_numpy(a) for a in (x, la, Bm, Cm, h0)]
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,H,P,N,Q", SSD_SHAPES)
+def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, Q, with_h0):
+    x, la, Bm, Cm, h0 = ssd_inputs(np.random.default_rng(3), B, S, H, P, N)
+    h0 = h0 if with_h0 else None
+    want = ssd_scan_op(x, la, Bm, Cm, Q, h0=h0)
+    n = ssd_scan_op.launches
+    got = ssd_scan_op(*(t.to(cuda) for t in (x, la, Bm, Cm)), Q,
+                      h0=None if h0 is None else h0.to(cuda))
+    torch.cuda.synchronize()
+    assert ssd_scan_op.launches == n + 1
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(f32(g), f32(w), **SSD_TOL)
+
+
+def test_ssd_scan_kernel_chunk_resume(cuda):
+    """Two halves chained through h0 give the whole scan."""
+    B, S, H, P, N, Q = 1, 256, 32, 64, 128, 128
+    ts = [t.to(cuda) for t in ssd_inputs(np.random.default_rng(6),
+                                         B, S, H, P, N)]
+    x, la, Bm, Cm, h0 = ts
+    y, h = ssd_scan_op(x, la, Bm, Cm, Q, h0=h0)
+    y1, h1 = ssd_scan_op(x[:, :Q], la[:, :Q], Bm[:, :Q], Cm[:, :Q], Q, h0=h0)
+    y2, h2 = ssd_scan_op(x[:, Q:], la[:, Q:], Bm[:, Q:], Cm[:, Q:], Q, h0=h1)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(f32(torch.cat([y1, y2], 1)), f32(y), **SSD_TOL)
+    np.testing.assert_allclose(f32(h2), f32(h), **SSD_TOL)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,W", RGLRU_SHAPES)
+def test_rglru_scan_kernel_matches_plain(cuda, B, S, W, with_h0):
+    rng = np.random.default_rng(4)
+    la = torch.from_numpy(-np.abs(rng.standard_normal((B, S, W),
+                                                      np.float32)) * 0.3)
+    g = torch.from_numpy(rng.standard_normal((B, S, W), np.float32))
+    h0 = torch.from_numpy(rng.standard_normal((B, W), np.float32)) \
+        if with_h0 else None
+    want = rglru_scan_op(la, g, h0)
+    n = rglru_scan_op.launches
+    got = rglru_scan_op(la.to(cuda), g.to(cuda),
+                        None if h0 is None else h0.to(cuda))
+    torch.cuda.synchronize()
+    assert rglru_scan_op.launches == n + 1
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(f32(a), f32(b), **RGLRU_TOL)
+
+
 def test_kernel_refuses_what_it_cannot_take(cuda):
     q = torch.zeros(1, 32, 4, 48, device=cuda)    # head_dim 48: no variant
     with pytest.raises(ValueError):
         flash_seq_op(q, q[:, :, :2], q[:, :, :2])
     with pytest.raises(TypeError):                # float16: no variant
         flash_seq_op(q.half(), q[:, :, :2].half(), q[:, :, :2].half())
+    z = torch.zeros(1, 256, 1, 16, device=cuda)   # chunk 256: no tile
+    with pytest.raises(ValueError):
+        ssd_scan_op(z, z[..., 0], z, z, 256)
