@@ -132,13 +132,15 @@ def report_rows(rows, tol, library):
 def check_kernels(cfg):
     """Each kernel vs its plain version on the card, at the main path's
     shapes: flash_seq at the profiling pass's longest prompt (S=128),
-    flash_chunk for a 256-token chunk at offset 512 of a 1024-slot cache,
-    paged decode over 8 slots of 1024 with lengths from 1 to 1024."""
+    flash_chunk for the serve phase's chunks against a 1024-slot cache
+    (timed: 256 tokens at offset 512), paged decode over 8 slots of 1024
+    with lengths from 1 to 1024."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import (flash_chunk_op, flash_seq_op,
                                      paged_attention_op)
     from repro_torch.kernels.flash_prefill import flash_prefill_ref
+    from repro_torch.kernels.flash_prefill.ops import plan, wgmma_attrs
     from repro_torch.kernels.paged_attention import paged_attention_ref
 
     dev = torch.device("cuda")
@@ -166,6 +168,8 @@ def check_kernels(cfg):
     want = flash_prefill_ref(to_bhsd(q), to_bhsd(k), to_bhsd(v)
                              ).transpose(1, 2)
     torch.cuda.synchronize()
+    log({"flash_seq_check": f"q(1,{S},{H},{D})",
+         "plan": plan(1, H, Hk, S, S, D, 0, None)._asdict()})
     pairs = S * (S + 1) // 2
     nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
     sets = copies([q, k, v])
@@ -183,13 +187,25 @@ def check_kernels(cfg):
                            lib_sets, 200),
         bound=bound(nbytes, 4.0 * D * H * pairs)))
 
-    # flash_chunk: a 256-token chunk at offset 512 against the whole cache
-    C, Sq, off = 1024, 256, 512
+    # flash_chunk: the chunks the serve phase sends against the whole
+    # 1024-slot cache (256 tokens at offsets 0, 256, 512, 768 and the
+    # smallest 32-token bucket at 992); timed at offset 512
+    C = 1024
+    errs, oks = [], []
+    for Sq, off in ((256, 0), (256, 256), (256, 512), (256, 768), (32, 992)):
+        q, kc, vc = rnd(1, Sq, H, D), rnd(1, C, Hk, D), rnd(1, C, Hk, D)
+        got = flash_chunk_op(q, kc, vc, off)
+        want = flash_prefill_ref(to_bhsd(q), to_bhsd(kc), to_bhsd(vc),
+                                 q_offset=off).transpose(1, 2)
+        torch.cuda.synchronize()
+        errs.append(max_err(got, want))
+        oks.append(within(got, want))
+        log({"flash_chunk_check": f"q(1,{Sq},{H},{D}) at offset {off}",
+             "max_abs_err": errs[-1], "within_tol": oks[-1],
+             "plan": plan(1, H, Hk, Sq, C, D, off, None)._asdict()})
+    log({"flash_fwd_wgmma": f"head_dim {D}", **wgmma_attrs(D)})
+    Sq, off = 256, 512
     q, kc, vc = rnd(1, Sq, H, D), rnd(1, C, Hk, D), rnd(1, C, Hk, D)
-    got = flash_chunk_op(q, kc, vc, off)
-    want = flash_prefill_ref(to_bhsd(q), to_bhsd(kc), to_bhsd(vc),
-                             q_offset=off).transpose(1, 2)
-    torch.cuda.synchronize()
     T = off + Sq
     pairs = Sq * off + Sq * (Sq + 1) // 2
     nbytes = 2 * (2 * q.numel() + 2 * T * Hk * D)
@@ -203,8 +219,9 @@ def check_kernels(cfg):
         name="flash_prefill_dyn", wrapper=flash_chunk_op,
         source="src/repro_torch/kernels/flash_prefill/csrc/flash_prefill.cu",
         replaces="src/repro/kernels/flash_prefill/flash_prefill.py:193",
-        shape=f"q(1,{Sq},{H},{D}) at offset {off}, kv(1,{C},{Hk},{D}) bf16",
-        max_abs_err=max_err(got, want), ok=within(got, want),
+        shape=f"q(1,{Sq},{H},{D}) at offset {off}, kv(1,{C},{Hk},{D}) bf16; "
+              "+ offsets 0, 256, 768 and a 32-token chunk at 992",
+        max_abs_err=max(errs), ok=all(oks),
         ms=time_ms(lambda a, b, c: flash_chunk_op(a, b, c, off), sets, 200),
         plain_ms=time_ms(lambda a, b, c: flash_prefill_ref(
             a, b, c, q_offset=off), plain_sets, 50),

@@ -8,30 +8,64 @@
 // Layout is the model's: q/o (B, Sq, H, D), k/v (B, T, Hk, D), contiguous,
 // float32 or bfloat16; query row i sits at absolute position q_offset + i,
 // kv row j at j. Query head h reads kv head h / (H / Hk) (GQA); no K/V is
-// duplicated in memory.
+// duplicated in memory. The softmax is float32 throughout; output is in q's
+// dtype. A block walks its kv tiles from the sliding-window bound to the
+// causal bound, carrying the online-softmax state in registers (the TPU
+// carried it across a sequential grid axis in VMEM).
 //
-// Design. The TPU grid walked the kv blocks in order on one core and carried
-// the online-softmax state in VMEM scratch. Blocks on Hopper run in parallel
-// in no order, so one block owns a (b, h, query tile) and a loop inside it
-// walks the kv tiles, keeping (m, l, acc) in registers. The loop starts at
-// the sliding-window bound and stops at the causal bound instead of
-// skipping dead blocks. The softmax is float32 throughout; output is in q's
-// dtype.
+// Routes, chosen by shape in `dispatch` (never as a fallback on failure):
+//   bfloat16, D in {64, 128}, H / Hk <= 64: `flash_fwd_wgmma` (+ the
+//     `flash_fwd_merge` pass when the kv walk is split) — the serving path;
+//   bfloat16, D in {32, 160} (or H / Hk > 64): `flash_fwd_mma`, mma.sync
+//     m16n8k16 tiles, one block per (b, query head, 64-row query tile);
+//   float32 (the CPU-parity sizes): `flash_fwd`, CUDA-core FMAs.
 //
-// bfloat16 (the serving path): `flash_fwd_mma`, 4 warps per 64-row query
-// tile, 16 rows per warp, 64-row kv tiles staged in padded shared memory.
-// S = Q K^T and O += P V run on the tensor cores as mma.sync m16n8k16 (bf16
-// in, f32 accumulate); the S accumulator fragments are repacked in registers
-// as the A operand of P V, P split into a bf16 hi + lo pair so it keeps ~16
-// bits (two P V products instead of one), and V's B fragments come from
-// ldmatrix.trans. float32 (the CPU-parity sizes): `flash_fwd`, 32-row tiles,
-// four threads per query row doing CUDA-core FMAs from shared memory.
+// What bounds it. At the engine's chunk shapes (<= 1024 cached positions,
+// 256-token chunks, qwen3-1.7b's 16/8 heads of 128) the work is ~4*Sq*T*H*D
+// operations against (2*Sq*H + 2*T*Hk)*D*2 bytes: at a 256-token chunk at
+// offset 512, 1.6 us of HBM time (5.2 MB) against 1.4 us of bf16 tensor-
+// core time (1.3 GFLOP), so bytes set the card's floor; in practice the
+// latency of a few dependent tile loads and the launch itself dominate.
 //
-// Bound on the H100: at long S the work is 4*S^2/2*D*H operations against
-// ~(S*H*D + 2*S*Hk*D + S*H*D) elements moved, so prefill is compute-bound;
-// at the engine's chunk shapes (<= 1024 positions) bytes and launch latency
-// dominate. mma.sync reaches only part of the wgmma rate and the tiles are
-// loaded without an async pipeline; TMA + wgmma is the later step.
+// `flash_fwd_wgmma`, and what it does about what held `flash_fwd_mma` back:
+//  1. Loads overlap compute: one producer warp keeps 2-stage rings of K
+//     and of V tiles (64 kv rows, in 64-column halves of 128 bytes,
+//     128-byte swizzled) in flight with TMA (cp.async.bulk.tensor, 4-d
+//     tensor maps over the model layout), completing on `mbarrier`s with
+//     expect_tx; the consumer warpgroup frees K(t) as soon as S(t) is done
+//     and V(t) after P(t) V(t), each on its own "empty" barrier. Q is
+//     loaded once. Out-of-range rows arrive zero-filled and are masked.
+//  2. The grid fills the card: a block owns (b, kv head, query tile, kv
+//     split). When (b, kv head, query tile) alone gives fewer blocks than
+//     the two an SM holds, the kv walk of each tile is split (split-KV)
+//     and each split writes a float32 partial (o, m, l) to scratch that
+//     `flash_fwd_merge` combines by log-sum-exp (a split that sees no live
+//     key for a row has m = -1e30, l = 0 and weight 0). The plan (query
+//     tile, splits) is made by `plan` in ops.py and passed in. A second
+//     small launch merged faster than the last split of each tile did
+//     after an atomic ticket.
+//  3. GQA reads each K/V tile once per kv head: the 64 rows of a tile are
+//     the G = H / Hk query heads x 64 / G query positions that share one kv
+//     head (row r = position r / G, head r % G, as a TMA box over (D, H,
+//     Sq) lands them).
+//  4. Both products run on wgmma: S = Q K^T as m64n64k16 with Q and K in
+//     shared memory (K-major, the natural B operand); O += P V as
+//     m64n64k16 per 64-column half of D with P from registers (the S
+//     accumulator repacked as the A fragment) and V in shared memory with
+//     the transpose-B bit (V is MN-major). P stays ~16 bits as a bf16 hi +
+//     lo pair (two P V products), as close as bf16 inputs allow to the
+//     float32 P V of the TPU kernel.
+//  5. Only tiles that cross the causal diagonal, the window edge or the end
+//     of the cache compare per element; inner tiles skip the mask.
+//  6. The host side: the C entry encodes three tensor maps per call
+//     through cuTensorMapEncodeTiled, fetched once with
+//     cudaGetDriverEntryPointByVersion (no -lcuda), and sets the shared-
+//     memory attribute once per device; ops.py sets the ctypes signature
+//     once when the library loads, caches the plan and keeps the scratch.
+// Each block is 5 warps (consumer warpgroup + producer warp), 81 KB of
+// shared memory at D = 128, two blocks per SM; a tile's S, softmax and
+// P V run in series inside the warpgroup, the other block fills the gaps.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -423,37 +457,601 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// ------------------------------------------- bf16: TMA ring + wgmma route
+
+constexpr int WT = 64;                 // rows of a query tile and a kv tile
+constexpr int WSTAGES = 2;             // K/V ring depth
+constexpr int WTHREADS = 160;          // consumer warpgroup + producer warp
+constexpr int MAX_SPLIT = 8;           // kv splits of one query tile
+constexpr int HALF_BYTES = WT * 64 * 2;  // 64 rows x 64 bf16 (128 B swizzle)
+
+template <int D>
+constexpr int wgmma_smem_bytes() {
+  // 1 KB to align the tiles to the swizzle pattern, Q, the K and V rings,
+  // 4 * WSTAGES + 1 barriers
+  return 1024 + (D / 64) * HALF_BYTES * (1 + 2 * WSTAGES) + 8 * 16;
+}
+
+struct WParams {
+  __nv_bfloat16* o;
+  float* part;                         // split partials: o, then (m, l)
+  int H, Hk, G, Sq, Tk, q_offset, window, qp, n_qt, n_split;
+  float scale_log2;                    // softmax scale * log2(e)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// spin until the barrier's phase differs from `parity`
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// one TMA box of a 4-d tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* m,
+                                          uint32_t bar, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(bar) : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: rows of
+// 128 B, 8-row groups 1024 B apart (SBO); LBO is the stride between
+// 64-column blocks of an MN-major operand (unused when N = 64)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads of async-written registers
+// across the wgmma wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (64 x 64, f32) (+)= A (64 x 16, smem, K-major) . B (16 x 64, smem,
+// K-major: B^T rows contiguous in k)
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, smem, MN-major:
+// rows of B contiguous in n; the transpose-B bit)
+__device__ __forceinline__ void wgmma_rs_tb(float* d, const uint32_t* a,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// kv tiles [t0, t1) of query tile qt, split `split` of n_split (the same
+// arithmetic as ops.py: kv_tile_range, split_range)
+__device__ __forceinline__ void kv_split(const WParams& p, int qt, int split,
+                                         int& t0, int& t1) {
+  const int q0 = qt * p.qp;
+  const int q_last = min(q0 + p.qp, p.Sq) - 1;
+  const int kv_end = min(p.Tk, p.q_offset + q_last + 1);
+  const int kv_begin =
+      p.window > 0 ? max(0, p.q_offset + q0 - p.window + 1) : 0;
+  const int a = kv_begin / WT;
+  const int n = max(0, (kv_end + WT - 1) / WT - a);
+  t0 = a + n * split / p.n_split;
+  t1 = a + n * (split + 1) / p.n_split;
+}
+
+template <int D>
+__global__ void __launch_bounds__(WTHREADS, 2)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const WParams p) {
+  static_assert(D == 64 || D == 128, "wgmma route takes head_dim 64, 128");
+  static_assert(WSTAGES <= 4, "barrier space");
+  constexpr int NH = D / 64;           // 64-column halves of a row
+  constexpr int TILE = NH * HALF_BYTES;  // bytes of a Q, K or V tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023) & ~1023u;
+  const uint32_t sK = sQ + TILE;       // K ring, then V ring
+  const uint32_t sV = sK + WSTAGES * TILE;
+  const uint32_t bar = sV + WSTAGES * TILE;
+  // K and V have rings of their own: K(t) frees when S(t) is done, V(t)
+  // when P(t) V(t) is
+  auto full_k = [&](int s) { return bar + 8 * s; };
+  auto full_v = [&](int s) { return bar + 8 * (WSTAGES + s); };
+  auto empty_k = [&](int s) { return bar + 8 * (2 * WSTAGES + s); };
+  auto empty_v = [&](int s) { return bar + 8 * (3 * WSTAGES + s); };
+  const uint32_t qbar = bar + 8 * 4 * WSTAGES;
+
+  const int qt = p.n_qt - 1 - blockIdx.x;  // longest kv walks first
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z / p.n_split;
+  const int split = blockIdx.z % p.n_split;
+  const int q0 = qt * p.qp;
+  int t0, t1;
+  kv_split(p, qt, split, t0, t1);
+  const int n = t1 - t0;               // kv tiles of this block
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+
+  if (tid == 0) {
+    for (int s = 0; s < WSTAGES; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 128);
+      mbar_init(empty_v(s), 128);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {                     // producer: one thread issues TMA
+    if ((tid & 31) == 0 && n > 0) {
+      mbar_expect_tx(qbar, NH * 128 * p.G * p.qp);
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+        tma_load4(sQ + h * HALF_BYTES, &tq, qbar, h * 64, hk * p.G, q0, b);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % WSTAGES;
+        const uint32_t par = ((i / WSTAGES) & 1) ^ 1;
+        const int row = (t0 + i) * WT;
+        mbar_wait(empty_k(s), par);
+        mbar_expect_tx(full_k(s), TILE);
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          tma_load4(sK + s * TILE + h * HALF_BYTES, &tk, full_k(s), h * 64,
+                    hk, row, b);
+        mbar_wait(empty_v(s), par);
+        mbar_expect_tx(full_v(s), TILE);
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          tma_load4(sV + s * TILE + h * HALF_BYTES, &tv, full_v(s), h * 64,
+                    hk, row, b);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: thread holds rows r0 and r0 + 8 of the tile
+  const int lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = warp * 16 + g;
+  int qpos[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+    qpos[rr] = p.q_offset + q0 + (r0 + 8 * rr) / p.G;
+  const int qmin = p.q_offset + q0;
+  const int qmax = p.q_offset + min(q0 + p.qp, p.Sq) - 1;
+  const int kv_lim = min(p.Tk, qmin + 1);  // tiles below need no causal mask
+
+  float oacc[NH][32];
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[h][i] = 0.f;
+  float m_r[2] = {NEG, NEG};
+  float l_r[2] = {0.f, 0.f};
+  float sacc[32];                      // S(i)
+  uint32_t hi[4][4], lo[4][4];         // P(i), read by the in-flight P V
+
+  // One tile at a time: S(i), softmax, P(i) V(i), each waited for before
+  // the next starts (a second block on the SM fills the gaps). Overlapping
+  // S(i + 1) with the softmax of S(i) through `wgmma.wait_group 1` made
+  // ptxas serialise every wgmma of the loop (C7514) and ran slower.
+  if (n > 0) mbar_wait(qbar, 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % WSTAGES;
+    const uint32_t par = (i / WSTAGES) & 1;
+    mbar_wait(full_k(s), par);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {  // S(i) = Q K(i)^T
+      const uint32_t off = (kk / 4) * HALF_BYTES + (kk % 4) * 32;
+      wgmma_ss(sacc, sw128_desc(sQ + off, 16),
+               sw128_desc(sK + s * TILE + off, 16), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence<32>(sacc);
+    mbar_arrive(empty_k(s));
+
+    const int kt = (t0 + i) * WT;
+    const bool inner = kt + WT <= kv_lim &&
+                       (p.window <= 0 || kt > qmax - p.window);
+    float mx[2] = {NEG, NEG};
+    if (inner) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        sacc[e] *= p.scale_log2;
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sacc[e]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int rr = (e >> 1) & 1;
+        const int kpos = kt + (e >> 2) * 8 + t4 * 2 + (e & 1);
+        const bool ok = kpos < p.Tk && kpos <= qpos[rr] &&
+                        (p.window <= 0 || kpos > qpos[rr] - p.window);
+        sacc[e] = ok ? sacc[e] * p.scale_log2 : NEG;
+        mx[rr] = fmaxf(mx[rr], sacc[e]);
+      }
+    }
+    float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      const float m_new = fmaxf(m_r[rr], mx[rr]);
+      alpha[rr] = exp2f(m_r[rr] - m_new);
+      m_r[rr] = m_new;
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int rr = (e >> 1) & 1;
+      const float pr = sacc[e] > 0.5f * NEG ? exp2f(sacc[e] - m_r[rr]) : 0.f;
+      sacc[e] = pr;
+      psum[rr] += pr;
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      psum[rr] += __shfl_xor_sync(0xffffffffu, psum[rr], 1);
+      psum[rr] += __shfl_xor_sync(0xffffffffu, psum[rr], 2);
+      l_r[rr] = alpha[rr] * l_r[rr] + psum[rr];
+    }
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) oacc[h][e] *= alpha[(e >> 1) & 1];
+    // P as the A fragments of four k16 steps, a bf16 hi + lo pair each:
+    // accumulator n8 blocks 2kc, 2kc+1 are exactly k-step kc's fragment
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* x = sacc + 8 * kc + 4 * (j >> 1) + 2 * (j & 1);
+        float l0, l1;
+        hi[kc][j] = split_bf16(x[0], x[1], l0, l1);
+        lo[kc][j] = pack_bf16(l0, l1);
+      }
+    }
+    mbar_wait(full_v(s), par);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        const uint64_t dv = sw128_desc(
+            sV + s * TILE + h * HALF_BYTES + kc * 16 * 128, HALF_BYTES);
+        wgmma_rs_tb(oacc[h], hi[kc], dv);
+        wgmma_rs_tb(oacc[h], lo[kc], dv);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int h = 0; h < NH; ++h) reg_fence<32>(oacc[h]);
+    reg_fence<16>(&hi[0][0]);
+    reg_fence<16>(&lo[0][0]);
+    mbar_arrive(empty_v(s));
+  }
+
+  // epilogue: rows past Sq or past G x qp are never stored; with a split
+  // walk the unnormalised (o, m, l) go to scratch for flash_fwd_merge
+  const int nblk = gridDim.x * gridDim.y * (gridDim.z / p.n_split);
+  const int blk = (b * p.Hk + hk) * p.n_qt + qt;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = r0 + 8 * rr;
+    const int pos = q0 + r / p.G;
+    if (r >= p.G * p.qp || pos >= p.Sq) continue;
+    if (p.n_split == 1) {
+      const float inv = 1.f / fmaxf(l_r[rr], 1e-30f);
+      __nv_bfloat16* ob =
+          p.o + (((long)b * p.Sq + pos) * p.H + hk * p.G + r % p.G) * D;
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(ob + h * 64 + j * 8 + t4 * 2) =
+              pack_bf16(oacc[h][4 * j + 2 * rr] * inv,
+                        oacc[h][4 * j + 2 * rr + 1] * inv);
+    } else {
+      const long row = ((long)split * nblk + blk) * WT + r;
+      float* po = p.part + row * D;
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<float2*>(po + h * 64 + j * 8 + t4 * 2) =
+              make_float2(oacc[h][4 * j + 2 * rr],
+                          oacc[h][4 * j + 2 * rr + 1]);
+      if (t4 == 0) {
+        float2* pml = reinterpret_cast<float2*>(
+            p.part + (long)p.n_split * nblk * WT * D);
+        pml[row] = make_float2(m_r[rr], l_r[rr]);
+      }
+    }
+  }
+}
+
+// combines the n_split partials (o, m, l) of each row by log-sum-exp (m in
+// log2 units), in split order; a split with no live key for a row
+// (m = -1e30) weighs 0. A thread merges 4 columns of one row.
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_fwd_merge(const float* __restrict__ part, __nv_bfloat16* __restrict__ o,
+                const WParams p, int nblk) {
+  constexpr int TPR = D / 4;           // threads per row
+  const int row = blockIdx.x * (128 / TPR) + threadIdx.x / TPR;
+  const int c = (threadIdx.x % TPR) * 4;
+  const int blk = row / WT, r = row % WT;
+  const int qt = blk % p.n_qt;
+  const int hk = (blk / p.n_qt) % p.Hk;
+  const int b = blk / (p.n_qt * p.Hk);
+  const int pos = qt * p.qp + r / p.G;
+  if (row >= nblk * WT || r >= p.G * p.qp || pos >= p.Sq) return;
+  const long stride = (long)nblk * WT;  // rows between two splits
+  const float2* ml =
+      reinterpret_cast<const float2*>(part + p.n_split * stride * D) + row;
+  float2 x[MAX_SPLIT];                 // all loads issued before any use
+  float4 y[MAX_SPLIT];
+#pragma unroll
+  for (int s = 0; s < MAX_SPLIT; ++s) {
+    if (s < p.n_split) {
+      x[s] = ml[s * stride];
+      y[s] = *reinterpret_cast<const float4*>(part + (s * stride + row) * D
+                                              + c);
+    }
+  }
+  float mmax = NEG;
+#pragma unroll
+  for (int s = 0; s < MAX_SPLIT; ++s)
+    if (s < p.n_split) mmax = fmaxf(mmax, x[s].x);
+  float l = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int s = 0; s < MAX_SPLIT; ++s) {
+    if (s < p.n_split) {
+      const float w = x[s].x > 0.5f * NEG ? exp2f(x[s].x - mmax) : 0.f;
+      l += w * x[s].y;
+      acc.x += w * y[s].x;
+      acc.y += w * y[s].y;
+      acc.z += w * y[s].z;
+      acc.w += w * y[s].w;
+    }
+  }
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  *reinterpret_cast<uint2*>(
+      o + (((long)b * p.Sq + pos) * p.H + hk * p.G + r % p.G) * D + c) =
+      make_uint2(pack_bf16(acc.x * inv, acc.y * inv),
+                 pack_bf16(acc.z * inv, acc.w * inv));
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, looked up once through the runtime
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
+                                         12000, cudaEnableDefault,
+                                         &res) == cudaSuccess &&
+        res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// 4-d map over a (B, S, heads, D) bf16 tensor, innermost first; a box is
+// 64 columns (128 B, swizzled) x box_h heads x box_s positions x 1 batch
+bool make_map(EncodeTiledFn enc, CUtensorMap* m, const void* ptr, int B,
+              int S, int heads, int D, int box_h, int box_s) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_h, (cuuint32_t)box_s, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, float* part, int B, int H, int Hk, int Sq,
+                         int Tk, int q_offset, int window, float scale,
+                         int qp, int n_split, cudaStream_t stream) {
+  const int G = H / Hk;
+  if (qp < 1 || qp * G > WT || n_split < 1 || n_split > MAX_SPLIT ||
+      (n_split > 1 && !part))
+    return cudaErrorInvalidValue;
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(enc, &mq, q, B, Sq, H, D, G, qp) ||
+      !make_map(enc, &mk, k, B, Tk, Hk, D, 1, WT) ||
+      !make_map(enc, &mv, v, B, Tk, Hk, D, 1, WT))
+    return cudaErrorInvalidValue;
+  static unsigned attr_done = 0;       // bit per device: attribute set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const int bytes = wgmma_smem_bytes<D>();
+  if (dev >= 32 || !(attr_done >> dev & 1u)) {
+    err = cudaFuncSetAttribute(flash_fwd_wgmma<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return err;
+    if (dev < 32) attr_done |= 1u << dev;
+  }
+  WParams p;
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.part = part;
+  p.H = H; p.Hk = Hk; p.G = G; p.Sq = Sq; p.Tk = Tk;
+  p.q_offset = q_offset; p.window = window; p.qp = qp;
+  p.n_qt = (Sq + qp - 1) / qp; p.n_split = n_split;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  dim3 grid(p.n_qt, Hk, B * n_split);
+  flash_fwd_wgmma<D><<<grid, WTHREADS, bytes, stream>>>(mq, mk, mv, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  const int nblk = p.n_qt * Hk * B;
+  flash_fwd_merge<D><<<nblk * WT / (128 / (D / 4)), 128, 0, stream>>>(
+      part, p.o, p, nblk);
+  return cudaGetLastError();
+}
+
+// the route is a switch on shape: bf16 at head_dim 64 or 128 with G <= 64
+// query heads per kv head takes the wgmma kernel, other bf16 head dims the
+// mma.sync one, float32 the CUDA-core one
 cudaError_t dispatch(int D, int dtype, const void* q, const void* k,
-                     const void* v, void* o, int B, int H, int Hk, int Sq,
-                     int Tk, int q_offset, int window, float scale,
-                     cudaStream_t s) {
-#define FLASH_CASE(DD)                                                      \
-  case DD:                                                                  \
-    return dtype == 1 ? launch_mma<DD>(q, k, v, o, B, H, Hk, Sq, Tk,        \
-                                       q_offset, window, scale, s)          \
-                      : launch<float, DD>(q, k, v, o, B, H, Hk, Sq, Tk,     \
-                                          q_offset, window, scale, s);
+                     const void* v, void* o, float* part, int B, int H,
+                     int Hk, int Sq, int Tk, int q_offset, int window,
+                     float scale, int qp, int n_split, cudaStream_t s) {
+  const bool wg = dtype == 1 && H / Hk <= WT;
+#define FLASH_SIMT(DD) \
+  launch<float, DD>(q, k, v, o, B, H, Hk, Sq, Tk, q_offset, window, scale, s)
+#define FLASH_MMA(DD) \
+  launch_mma<DD>(q, k, v, o, B, H, Hk, Sq, Tk, q_offset, window, scale, s)
+#define FLASH_WGMMA(DD)                                                 \
+  launch_wgmma<DD>(q, k, v, o, part, B, H, Hk, Sq, Tk, q_offset, window, \
+                   scale, qp, n_split, s)
   switch (D) {
-    FLASH_CASE(32)
-    FLASH_CASE(64)
-    FLASH_CASE(128)
-    FLASH_CASE(160)
+    case 32: return dtype == 1 ? FLASH_MMA(32) : FLASH_SIMT(32);
+    case 64:
+      return dtype != 1 ? FLASH_SIMT(64) : wg ? FLASH_WGMMA(64) : FLASH_MMA(64);
+    case 128:
+      return dtype != 1 ? FLASH_SIMT(128)
+                        : wg ? FLASH_WGMMA(128) : FLASH_MMA(128);
+    case 160: return dtype == 1 ? FLASH_MMA(160) : FLASH_SIMT(160);
     default: return cudaErrorInvalidValue;
   }
-#undef FLASH_CASE
+#undef FLASH_SIMT
+#undef FLASH_MMA
+#undef FLASH_WGMMA
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. window <= 0 means no sliding window.
-// Returns the cudaError_t of the launch (0 on success).
+// qp (query positions per tile) and n_split (kv splits) come from ops.py's
+// plan and are read by the wgmma route only; with n_split > 1 part is its
+// float32 scratch of n_split * B * Hk * ceil(Sq / qp) * 64 * (D + 2)
+// values (null otherwise). Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int flash_prefill_launch(const void* q, const void* k,
-                                    const void* v, void* o, int B, int H,
-                                    int Hk, int Sq, int Tk, int D,
-                                    int q_offset, int window, float scale,
-                                    int dtype, void* stream) {
+                                    const void* v, void* o, void* part,
+                                    int B, int H, int Hk, int Sq, int Tk,
+                                    int D, int q_offset, int window,
+                                    float scale, int dtype, int qp,
+                                    int n_split, void* stream) {
   if (H % Hk != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch(D, dtype, q, k, v, o, B, H, Hk, Sq, Tk, q_offset,
-                       window, scale, static_cast<cudaStream_t>(stream));
+  return (int)dispatch(D, dtype, q, k, v, o, static_cast<float*>(part), B,
+                       H, Hk, Sq, Tk, q_offset, window, scale, qp, n_split,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// Registers, local-memory (spill) bytes and dynamic shared memory of the
+// wgmma kernel at head_dim D, as the runtime reports them. Returns the
+// cudaError_t (0 on success).
+extern "C" int flash_prefill_wgmma_attrs(int D, int* regs, int* local_bytes,
+                                         int* smem_bytes) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 64) {
+    err = cudaFuncGetAttributes(&a, flash_fwd_wgmma<64>);
+    *smem_bytes = wgmma_smem_bytes<64>();
+  } else if (D == 128) {
+    err = cudaFuncGetAttributes(&a, flash_fwd_wgmma<128>);
+    *smem_bytes = wgmma_smem_bytes<128>();
+  }
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
 }

@@ -3,8 +3,10 @@
 ``flash_seq_op`` (whole-prompt prefill, the TPU's static-offset
 ``flash_prefill``) and ``flash_chunk_op`` (chunked prefill against the slot
 cache, the TPU's ``flash_prefill_dyn``) take q (B,S,H,D) and k,v (B,T,Hk,D)
-and return (B,S,H,D). Both launch the one Hopper kernel of
-``csrc/flash_prefill.cu``, whose query offset is a launch argument.
+and return (B,S,H,D). Both launch the Hopper kernels of
+``csrc/flash_prefill.cu``, whose query offset is a launch argument; ``plan``
+says how a call is cut (route, query tile, kv splits), in Python so the CPU
+tests reach it.
 
 On a CUDA tensor a wrapper launches the kernel (or raises); on a CPU tensor
 it runs the plain-torch version in ``ref.py``. Each wrapper counts its own
@@ -13,8 +15,9 @@ launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -23,6 +26,72 @@ from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
 
 HEAD_DIMS = (32, 64, 128, 160)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 64                # rows of a query tile and of a kv tile (wgmma)
+SM_COUNT = 132           # H100 SXM; two wgmma blocks fit on an SM
+MIN_SPLIT_TILES = 2      # kv tiles a split must get before the walk splits
+MAX_SPLIT = 8
+
+
+class FlashPlan(NamedTuple):
+    """How the kernel cuts one call. ``route``: "wgmma" (bf16, head_dim 64
+    or 128, G = H/Hk <= 64), "mma" (other bf16 head dims) or "simt"
+    (float32). On the wgmma route a tile's 64 rows are G query heads x
+    ``qp`` query positions of one kv head, and each tile's kv walk is cut
+    into ``n_split`` splits whose float32 partials (``scratch`` values) a
+    merge pass combines."""
+    route: str
+    qp: int
+    n_qt: int
+    n_split: int
+    blocks: int
+    scratch: int
+
+
+def kv_tile_range(qt: int, qp: int, Sq: int, T: int, q_offset: int,
+                  window: Optional[int]) -> Tuple[int, int]:
+    """The kv tiles [t0, t1) (of ``TILE`` positions) that query tile ``qt``
+    walks: from the window bound of its first row to the causal bound of
+    its last, inside the T cached positions."""
+    q0 = qt * qp
+    q_last = min(q0 + qp, Sq) - 1
+    kv_end = min(T, q_offset + q_last + 1)
+    kv_begin = max(0, q_offset + q0 - window + 1) if window else 0
+    t0 = kv_begin // TILE
+    return t0, t0 + max(0, -(-kv_end // TILE) - t0)
+
+
+def split_range(t0: int, t1: int, split: int, n_split: int
+                ) -> Tuple[int, int]:
+    """Split ``split`` of ``n_split`` of the kv tiles [t0, t1) (the kernel's
+    ``kv_split``): contiguous, disjoint, covering; empty where the walk has
+    fewer tiles than splits."""
+    n = t1 - t0
+    return t0 + n * split // n_split, t0 + n * (split + 1) // n_split
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(B: int, H: int, Hk: int, Sq: int, T: int, D: int, q_offset: int,
+         window: Optional[int], dtype=torch.bfloat16) -> FlashPlan:
+    """The launch plan of one call (pure arithmetic on the shapes). Splits
+    the kv walk while the grid fits in the two blocks an SM holds, and
+    only while the longest walk (the last query tile's) keeps
+    ``MIN_SPLIT_TILES`` tiles a split. Cached: the engine repeats a few
+    shapes and offsets."""
+    G = H // Hk
+    if dtype != torch.bfloat16:
+        n = -(-Sq // 32)
+        return FlashPlan("simt", 32, n, 1, n * H * B, 0)
+    if D not in (64, 128) or G > TILE:
+        n = -(-Sq // 64)
+        return FlashPlan("mma", 64, n, 1, n * H * B, 0)
+    qp = TILE // G
+    n_qt = -(-Sq // qp)
+    base = B * Hk * n_qt
+    t0, t1 = kv_tile_range(n_qt - 1, qp, Sq, T, q_offset, window)
+    n_split = max(1, min(2 * SM_COUNT // base, (t1 - t0) // MIN_SPLIT_TILES,
+                         MAX_SPLIT))
+    scratch = n_split * base * TILE * (D + 2) if n_split > 1 else 0
+    return FlashPlan("wgmma", qp, n_qt, n_split, base * n_split, scratch)
 
 
 def _block_size(n: int, cap: int = 128) -> int:
@@ -49,6 +118,46 @@ def _check(q, k, v, window):
         raise ValueError(f"window must be positive, got {window}")
 
 
+_launch_fn = None
+_scratch = {}            # device index -> float32 split-KV scratch
+
+
+def _scratch_buffer(device, n: int):
+    """At least ``n`` float32 values of split-KV scratch on ``device``,
+    kept between calls (grown when a call needs more): the merge pass
+    reads it before the next launch on the stream writes it again, and a
+    fresh ``torch.empty`` a call costs host time on a host-bound path."""
+    t = _scratch.get(device.index)
+    if t is None or t.numel() < n:
+        t = torch.empty(n, dtype=torch.float32, device=device)
+        _scratch[device.index] = t
+    return t
+
+
+def _kernel():
+    """The C entry point, its ctypes signature set once at load."""
+    global _launch_fn
+    if _launch_fn is None:
+        fn = _build.load("flash_prefill").flash_prefill_launch
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _launch_fn = fn
+    return _launch_fn
+
+
+def wgmma_attrs(D: int) -> dict:
+    """Registers, local-memory (spill) bytes and dynamic shared memory of
+    the wgmma kernel at head_dim ``D``, as the CUDA runtime reports them
+    (card only)."""
+    regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _build.load("flash_prefill").flash_prefill_wgmma_attrs(
+        D, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(smem))
+    _build.check(err, "flash_prefill_wgmma_attrs")
+    return {"registers": regs.value, "local_bytes": local.value,
+            "smem_bytes": smem.value}
+
+
 def _flash_cuda(q, k, v, q_offset: int, window: Optional[int]):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_prefill kernel takes float32/bfloat16, "
@@ -58,17 +167,20 @@ def _flash_cuda(q, k, v, q_offset: int, window: Optional[int]):
         raise ValueError(f"flash_prefill kernel has no head_dim {D}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_prefill kernel needs contiguous q, k, v")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if any(p % 16 for p in ptrs):
         raise ValueError("flash_prefill kernel needs 16-byte aligned q, k, v")
-    fn = _build.load("flash_prefill").flash_prefill_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    Hk, T = k.shape[2], k.shape[1]
+    q_offset, window = int(q_offset), int(window or 0)
+    pl = plan(B, H, Hk, S, T, D, q_offset, window or None, q.dtype)
     o = torch.empty_like(q)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             B, H, k.shape[2], S, k.shape[1], D, int(q_offset),
-             int(window or 0), 1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+    part = _scratch_buffer(q.device, pl.scratch).data_ptr() \
+        if pl.scratch else None
+    err = _kernel()(*ptrs, o.data_ptr(), part,
+                    B, H, Hk, S, T, D, q_offset, window,
+                    1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype], pl.qp,
+                    pl.n_split, torch._C._cuda_getCurrentRawStream(
+                        q.device.index))
     _build.check(err, "flash_prefill_launch")
     return o
 

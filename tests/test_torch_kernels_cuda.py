@@ -102,6 +102,59 @@ def test_flash_kernel_matches_plain(cuda, B, H, Hk, Sq, T, D, dtype,
         np.testing.assert_allclose(f32(seq), want, **tol(dtype))
 
 
+# the wgmma route's edges, bf16: (B, H, Hk, Sq, T, D, q_offset, window)
+WGMMA_EDGES = [
+    (1, 8, 8, 96, 512, 128, 300, None),    # G = 1
+    (2, 8, 4, 64, 256, 64, 192, None),     # G = 2, head_dim 64
+    (1, 16, 4, 100, 700, 128, 600, None),  # G = 4, ragged Sq and T
+    (1, 16, 2, 40, 1024, 64, 984, None),   # G = 8
+    (1, 12, 2, 80, 600, 128, 500, None),   # G = 6: 60 of 64 rows live
+    (1, 16, 8, 256, 1024, 128, 512, 200),  # window across tiles and splits
+    (1, 16, 8, 256, 1024, 128, 700, 65),   # window one past a tile
+    (1, 4, 2, 1024, 1024, 128, 0, None),   # walks shorter than the splits
+    (1, 16, 8, 32, 1024, 128, 992, None),  # the smallest engine bucket
+    (1, 16, 8, 256, 1024, 128, 0, None),   # engine chunks, qwen3-1.7b
+    (1, 16, 8, 256, 1024, 128, 256, None),
+    (1, 16, 8, 256, 1024, 128, 512, None),
+]
+
+
+@pytest.mark.parametrize("B,H,Hk,Sq,T,D,q_offset,window", WGMMA_EDGES)
+def test_flash_wgmma_edges_match_plain(cuda, B, H, Hk, Sq, T, D, q_offset,
+                                       window):
+    """The wgmma route (TMA ring, split-KV and merge) at GQA groups 1-8,
+    windows, short walks and the engine's chunk offsets; a second call at
+    the same shape gives the same bits (the kernel keeps no state)."""
+    rng = np.random.default_rng(7)
+    q = rand(rng, (B, Sq, H, D), "bfloat16")
+    k = rand(rng, (B, T, Hk, D), "bfloat16")
+    v = rand(rng, (B, T, Hk, D), "bfloat16")
+    want = f32(flash_chunk_op(q, k, v, q_offset, window=window))
+    args = [t.to(cuda) for t in (q, k, v)]
+    got = flash_chunk_op(*args, q_offset, window=window)
+    again = flash_chunk_op(*args, q_offset, window=window)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(f32(got), want, **tol("bfloat16"))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_wgmma_structured_v(cuda, D):
+    """Q = K = 0 makes P uniform over each row's live keys; V row j is the
+    one-hot e_(j mod D), so O[i, d] counts the live keys j = d (mod D),
+    over the count of live keys: a wrong V layout or transpose shows as
+    mass in the wrong column."""
+    Sq, T, H, Hk, off = 64, 300, 4, 2, 236
+    q = torch.zeros(1, Sq, H, D, dtype=torch.bfloat16)
+    k = torch.zeros(1, T, Hk, D, dtype=torch.bfloat16)
+    v = torch.zeros(1, T, Hk, D, dtype=torch.bfloat16)
+    v[0, torch.arange(T), :, torch.arange(T) % D] = 1
+    want = f32(flash_chunk_op(q, k, v, off))
+    got = flash_chunk_op(q.to(cuda), k.to(cuda), v.to(cuda), off)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(f32(got), want, **tol("bfloat16"))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,H,Hk,D,page,P,MP", PAGED_SHAPES)
 def test_paged_kernel_matches_plain(cuda, B, H, Hk, D, page, P, MP, dtype):
