@@ -42,19 +42,38 @@ LOGIT_TOL = 5e-2         # model logits, hopper vs reference, x max|ref|
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, H100 SXM at 700 W
 F32_FLOPS = 67e12        # float32 CUDA-core peak (no TF32), H100 SXM
+TF32X3_FLOPS = 495e12 / 3  # float32 on the TF32 tensor cores (495 TFLOP/s)
+#                            split hi + lo: three products a multiply-add
 
 
 def log(obj) -> None:
     print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
 
 
+def device_us_per_call(prof, iters: int) -> dict:
+    """Device microseconds per call of each kernel in a profile of
+    ``iters`` calls that each launch the same kernels. torch.profiler can
+    drop some of a kernel's launches from its window (on the H100: 199 of
+    200 launches of one kernel, in every profile of a call), so a kernel's
+    time is its mean time per recorded launch times its launches per call
+    (its count over ``iters``, rounded), not its total over ``iters``."""
+    out = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            per_call = e.count / iters
+            per_call = round(per_call) if per_call >= 0.5 else per_call
+            out[e.key[:60]] = e.self_device_time_total / e.count * per_call
+    return out
+
+
 def time_ms(fn, arg_sets, iters: int):
     """Per-call times of ``fn(*args)`` over ``iters`` calls, cycling through
     ``arg_sets`` (copies of the inputs whose total exceeds the 50 MB L2, so
     each call reads its inputs from device memory). Returns (device_ms,
-    call_ms): the device time of every kernel the calls launched, summed by
-    torch.profiler, and the CUDA-event time between the first call and the
-    last, which also holds any host overhead that left the device idle."""
+    call_ms): the device time of every kernel the calls launched, from
+    torch.profiler (``device_us_per_call``), and the CUDA-event time
+    between the first call and the last, which also holds any host
+    overhead that left the device idle."""
     from torch.profiler import ProfilerActivity, profile
     for args in arg_sets[:2]:
         fn(*args)
@@ -71,10 +90,14 @@ def time_ms(fn, arg_sets, iters: int):
         for i in range(iters):
             fn(*arg_sets[i % len(arg_sets)])
         torch.cuda.synchronize()
-    device_us = sum(e.self_device_time_total for e in prof.key_averages())
+    dropped = {e.key[:60]: e.count for e in prof.key_averages()
+               if e.self_device_time_total > 0 and e.count % iters}
+    if dropped:
+        log({"profiler_launch_counts_off": dropped, "iters": iters})
+    device_us = sum(device_us_per_call(prof, iters).values())
     if device_us <= 0:
         raise AssertionError("torch.profiler saw no device time")
-    return device_us / 1e3 / iters, call_ms
+    return device_us / 1e3, call_ms
 
 
 def copies(tensors, min_total=160 << 20, cap=64):
@@ -142,6 +165,9 @@ def check_kernels(cfg):
     from repro_torch.kernels.flash_prefill import flash_prefill_ref
     from repro_torch.kernels.flash_prefill.ops import plan, wgmma_attrs
     from repro_torch.kernels.paged_attention import paged_attention_ref
+    from repro_torch.kernels.paged_attention.ops import \
+        kernel_attrs as paged_attrs
+    from repro_torch.kernels.paged_attention.ops import plan as paged_plan
 
     dev = torch.device("cuda")
     H, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -248,6 +274,9 @@ def check_kernels(cfg):
                                   vp[perm].contiguous(),
                                   inv[pt.long()].to(torch.int32), ln)
     torch.cuda.synchronize()
+    log({"paged_check": f"q({B},{H},{D}) pages of {page}, {MP} a row",
+         "plan": paged_plan(B, H, Hk, D, page, MP)._asdict(),
+         "paged_decode_split": paged_attrs(bf, H // Hk)})
     live = sum(lengths_l)
     nbytes = 2 * (2 * qd.numel() + 2 * live * Hk * D) + 4 * (pt.numel() + B)
     sets = copies([qd, kp, vp])
@@ -279,11 +308,15 @@ def check_kernels(cfg):
 def check_scan_kernels():
     """ssd_scan and rglru_scan vs their plain versions on the card, at the
     main paths' shapes: one 256-token prefill chunk of full-width
-    mamba2-370m (H=32, P=64, N=128, chunk 128) and of recurrentgemma-9b
-    (lru_width 4096), each from a random state; also batch 8, a two-half
-    chunk resume through h0, and a 160-token bucket for rglru_scan (a
-    length the TPU kernel's 128-token tiles refuse). No single PyTorch
-    call computes either function, so library_ms is null."""
+    mamba2-370m (H=32, P=64, N=128, chunk 128, B and C at the group level
+    the model passes, n_groups 1) and of recurrentgemma-9b (lru_width
+    4096), each from a random state; also batch 8, B and C repeated per
+    head, two groups, a two-half chunk resume through h0, and a 160-token
+    bucket for rglru_scan (a length the TPU kernel's 128-token tiles
+    refuse). The ssd bound counts C.B^T once per group and chunk, as the
+    kernel computes it, at the rate of the tensor cores that do its
+    products (3xTF32). No single PyTorch call computes either function,
+    so library_ms is null."""
     from repro_torch.kernels import rglru_scan_op, ssd_scan_op
     from repro_torch.kernels.rglru_scan import rglru_scan_ref
     from repro_torch.kernels.ssd_scan import ssd_scan_ref
@@ -294,9 +327,10 @@ def check_scan_kernels():
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=dev) * scale
 
-    def ssd_inputs(B, S, H=32, P=64, N=128):
+    def ssd_inputs(B, S, H=32, P=64, N=128, G=1):
+        """mamba2-370m's layout: B and C at group level (n_groups = 1)."""
         return (rnd(B, S, H, P), -rnd(B, S, H).abs() * 0.5,
-                rnd(B, S, H, N, scale=0.3), rnd(B, S, H, N, scale=0.3),
+                rnd(B, S, G, N, scale=0.3), rnd(B, S, G, N, scale=0.3),
                 rnd(B, H, P, N))
 
     def rglru_inputs(B, S, W=4096):
@@ -315,27 +349,39 @@ def check_scan_kernels():
     b8 = ssd_inputs(8, 256)
     got8 = ssd_scan_op(*b8[:4], Q, h0=b8[4])
     want8 = ssd_scan_ref(*b8)
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    # the per-head form of the JAX contract, and two groups
+    per_head = ssd_scan_op(x, la, Bm.repeat_interleave(H // G, 2),
+                           Cm.repeat_interleave(H // G, 2), Q, h0=h0)
+    g2 = ssd_inputs(1, 256, G=2)
+    got2 = ssd_scan_op(*g2[:4], Q, h0=g2[4])
+    want2 = ssd_scan_ref(*g2)
     torch.cuda.synchronize()
     err, ok = err_ok(list(zip(got, want)) + list(zip(got8, want8))
+                     + list(zip(per_head, want)) + list(zip(got2, want2))
                      + [(torch.cat([y1, y2], 1), got[0]), (h2, got[1])],
                      SSD_TOL)
-    B, S, H, P = x.shape
-    N = Bm.shape[-1]
-    pairs = Q * (Q + 1) // 2 * (S // Q) * B * H   # causal (i, j) of chunks
-    flops = (2 * pairs * (N + P)                  # C.B^T, then its product
-             + 2 * B * S * H * N * P * 2)         # inter-chunk y, state
+    from repro_torch.kernels.ssd_scan.ops import kernel_attrs as ssd_attrs
+    log({"ssd_scan_phases": f"chunk {Q}, d_state {N}", **ssd_attrs()})
+    nc = S // Q
+    pairs = Q * (Q + 1) // 2                      # causal (i, j) of a chunk
+    flops = B * nc * (H * (2 * pairs * P          # (C.B^T o decay) x
+                           + 2 * 2 * Q * N * P)   # C.state, state update
+                      + G * 2 * pairs * N)        # C.B^T, once per group
     sets = copies(list(main_in))
     ssd = dict(
         name="ssd_scan", wrapper=ssd_scan_op,
         source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/ssd_scan.py:85",
-        shape=f"x(1,{S},{H},{P}) Bm/Cm(1,{S},{H},{N}) h0 chunk {Q} f32; "
-              f"+ batch 8, + resume from two halves",
+        shape=f"x(1,{S},{H},{P}) Bm/Cm(1,{S},{G},{N}) h0 chunk {Q} f32; "
+              f"+ batch 8, + per-head B/C, + 2 groups, + resume from two "
+              f"halves",
         max_abs_err=err, ok=ok,
         ms=time_ms(lambda *a: ssd_scan_op(*a[:4], Q, h0=a[4]), sets, 200),
         plain_ms=time_ms(lambda *a: ssd_scan_ref(*a), sets[:4], 10),
         library_ms=None,
-        bound=bound(nbytes(*main_in, *got), flops, F32_FLOPS))
+        bound=bound(nbytes(*main_in, *got), flops, TF32X3_FLOPS))
 
     la, gt, h0 = main_in = rglru_inputs(1, 256)
     got = rglru_scan_op(la, gt, h0)
@@ -575,8 +621,9 @@ def paths():
                                      paged_attention_op, rglru_scan_op,
                                      ssd_scan_op)
     return (("qwen3-1.7b", (flash_seq_op, flash_chunk_op, paged_attention_op),
-             ("flash_fwd", "paged_decode")),
-            ("mamba2-370m", (ssd_scan_op,), ("ssd_scan",)),
+             ("flash_fwd", "paged_decode", "paged_merge")),
+            ("mamba2-370m", (ssd_scan_op,), ("ssd_cb", "ssd_chunk",
+                                            "ssd_state")),
             ("recurrentgemma-9b", (rglru_scan_op,), ("rglru_scan",)))
 
 

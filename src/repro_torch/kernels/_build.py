@@ -5,7 +5,10 @@ first use it is compiled by ``nvcc`` for ``sm_90a`` into a shared library in
 the build directory (``REPRO_TORCH_BUILD_DIR``, else ``kernels/build/``
 beside this file; both are git-ignored) and loaded with ``ctypes``. The
 library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded.
+source is rebuilt and a stale library is never loaded. The wrappers reach
+their entry points through ``fn`` (the ctypes signature set once) and keep
+their float32 scratch through ``scratch``, since the serving paths are
+host-bound and a signature or a fresh ``torch.empty`` a call costs host time.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine with no ``nvcc``.
@@ -18,7 +21,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence, Tuple
+
+import torch
 
 _HERE = Path(__file__).resolve().parent
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -30,7 +35,10 @@ SOURCES = {
     "ssd_scan": _HERE / "ssd_scan" / "csrc" / "ssd_scan.cu",
     "rglru_scan": _HERE / "rglru_scan" / "csrc" / "rglru_scan.cu",
 }
+SM_COUNT = 132           # H100 SXM: the grids the launch plans aim to fill
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+_SCRATCH: Dict[Tuple[str, int], torch.Tensor] = {}
 
 
 def build_dir() -> Path:
@@ -98,3 +106,33 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def fn(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C entry point ``symbol`` of kernel ``name``, returning a
+    ``cudaError_t``, its ctypes signature set at the first call only."""
+    f = _FNS.get((name, symbol))
+    if f is None:
+        f = getattr(load(name), symbol)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+        _FNS[(name, symbol)] = f
+    return f
+
+
+def scratch(name: str, device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` float32 values of kernel ``name``'s scratch on
+    ``device``, kept between calls (grown when a call needs more). A kernel
+    reads its scratch back before the next launch on the stream writes it
+    again."""
+    t = _SCRATCH.get((name, device.index))
+    if t is None or t.numel() < n:
+        t = torch.empty(n, dtype=torch.float32, device=device)
+        _SCRATCH[(name, device.index)] = t
+    return t
+
+
+def stream(device: torch.device) -> int:
+    """The current stream of ``device`` as a raw handle (the
+    ``torch.cuda.current_stream`` object costs host time a call)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -22,12 +22,12 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import SM_COUNT
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
 
 HEAD_DIMS = (32, 64, 128, 160)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64                # rows of a query tile and of a kv tile (wgmma)
-SM_COUNT = 132           # H100 SXM; two wgmma blocks fit on an SM
 MIN_SPLIT_TILES = 2      # kv tiles a split must get before the walk splits
 MAX_SPLIT = 8
 
@@ -73,7 +73,7 @@ def split_range(t0: int, t1: int, split: int, n_split: int
 def plan(B: int, H: int, Hk: int, Sq: int, T: int, D: int, q_offset: int,
          window: Optional[int], dtype=torch.bfloat16) -> FlashPlan:
     """The launch plan of one call (pure arithmetic on the shapes). Splits
-    the kv walk while the grid fits in the two blocks an SM holds, and
+    the kv walk while the grid fits in the two wgmma blocks an SM holds, and
     only while the longest walk (the last query tile's) keeps
     ``MIN_SPLIT_TILES`` tiles a split. Cached: the engine repeats a few
     shapes and offsets."""
@@ -118,32 +118,11 @@ def _check(q, k, v, window):
         raise ValueError(f"window must be positive, got {window}")
 
 
-_launch_fn = None
-_scratch = {}            # device index -> float32 split-KV scratch
-
-
-def _scratch_buffer(device, n: int):
-    """At least ``n`` float32 values of split-KV scratch on ``device``,
-    kept between calls (grown when a call needs more): the merge pass
-    reads it before the next launch on the stream writes it again, and a
-    fresh ``torch.empty`` a call costs host time on a host-bound path."""
-    t = _scratch.get(device.index)
-    if t is None or t.numel() < n:
-        t = torch.empty(n, dtype=torch.float32, device=device)
-        _scratch[device.index] = t
-    return t
-
-
-def _kernel():
-    """The C entry point, its ctypes signature set once at load."""
-    global _launch_fn
-    if _launch_fn is None:
-        fn = _build.load("flash_prefill").flash_prefill_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
-            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _launch_fn = fn
-    return _launch_fn
+# the C entry point: q, k, v, o, part, B, H, Hk, Sq, Tk, D, q_offset,
+# window, scale, dtype, qp, n_split, stream
+LAUNCH = ("flash_prefill", "flash_prefill_launch",
+          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float]
+          + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def wgmma_attrs(D: int) -> dict:
@@ -174,13 +153,12 @@ def _flash_cuda(q, k, v, q_offset: int, window: Optional[int]):
     q_offset, window = int(q_offset), int(window or 0)
     pl = plan(B, H, Hk, S, T, D, q_offset, window or None, q.dtype)
     o = torch.empty_like(q)
-    part = _scratch_buffer(q.device, pl.scratch).data_ptr() \
+    part = _build.scratch("flash_prefill", q.device, pl.scratch).data_ptr() \
         if pl.scratch else None
-    err = _kernel()(*ptrs, o.data_ptr(), part,
-                    B, H, Hk, S, T, D, q_offset, window,
-                    1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype], pl.qp,
-                    pl.n_split, torch._C._cuda_getCurrentRawStream(
-                        q.device.index))
+    err = _build.fn(*LAUNCH)(*ptrs, o.data_ptr(), part,
+                             B, H, Hk, S, T, D, q_offset, window,
+                             1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype], pl.qp,
+                             pl.n_split, _build.stream(q.device))
     _build.check(err, "flash_prefill_launch")
     return o
 

@@ -4,19 +4,66 @@
 table (B, MP) and context lengths (B,), both int32, and returns (B,H,D). On
 a CUDA tensor it launches the Hopper kernel of ``csrc/paged_attention.cu``
 (or raises); on a CPU tensor it runs the plain-torch version in ``ref.py``.
-Its launches are counted in ``paged_attention_op.launches``.
+``plan`` says how a call is cut into splits of consecutive pages, from the
+static shapes alone, in Python so the CPU tests reach it. Launches are
+counted in ``paged_attention_op.launches``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import SM_COUNT
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+BLOCKS_PER_SM = 4        # the grid the plan aims for: four blocks an SM
+MIN_SPLIT_TOKENS = 64    # a split gets at least this many positions
+MAX_PPS = 64             # page-table entries a split (the kernel's cache)
+HEAD_DIMS = (32, 64, 128, 160, 256)
+THREADS = 128            # the kernel's block, and its limits on G:
+MAX_OWN = 4              # G * D / (16 bytes) <= MAX_OWN * THREADS
+
+
+class PagedPlan(NamedTuple):
+    """How the kernel cuts one call: each (row, kv head) walks its page
+    table in ``n_split`` splits of ``pages_per_split`` consecutive entries
+    (the last may be shorter), one block each; with more than one split
+    the blocks write ``scratch`` float32 partial values that a merge pass
+    combines."""
+    pages_per_split: int
+    n_split: int
+    blocks: int
+    scratch: int
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(B: int, H: int, Hk: int, D: int, page: int, MP: int) -> PagedPlan:
+    """The launch plan of one call (pure arithmetic on static shapes; the
+    lengths live on the device and are never read here). Splits each row's
+    pages until ``B * Hk * n_split`` fills ``BLOCKS_PER_SM`` blocks on every
+    SM, keeping at least ``MIN_SPLIT_TOKENS`` positions a split and at
+    most ``MAX_PPS`` pages."""
+    base = B * Hk
+    want = max(1, -(-BLOCKS_PER_SM * SM_COUNT // base))
+    pps = max(-(-MP // want), -(-MIN_SPLIT_TOKENS // page))
+    pps = min(pps, MP, MAX_PPS)
+    n_split = -(-MP // pps)
+    scratch = base * n_split * (H // Hk) * (D + 2) if n_split > 1 else 0
+    return PagedPlan(pps, n_split, base * n_split, scratch)
+
+
+def split_pages(pages_per_split: int, MP: int, split: int
+                ) -> Tuple[int, int]:
+    """Entries [a, b) of a row's page table that split ``split`` walks (the
+    kernel's ``lo``/``hi`` before the row's length cuts them)."""
+    a = split * pages_per_split
+    return a, min(MP, a + pages_per_split)
 
 
 def _check(q, k_pages, v_pages, page_table, lengths):
@@ -41,6 +88,26 @@ def _check(q, k_pages, v_pages, page_table, lengths):
         raise ValueError(f"all inputs must be on one device, got {devs}")
 
 
+# the C entry point: q, k_pages, v_pages, page_table, lengths, part, o, B,
+# H, Hk, D, page, MP, pages_per_split, n_split, scale, dtype, stream
+LAUNCH = ("paged_attention", "paged_attention_launch",
+          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def kernel_attrs(dtype, G: int) -> dict:
+    """Registers, local-memory (spill) bytes and dynamic shared memory of
+    the split kernel at head_dim 128, as the CUDA runtime reports them
+    (card only)."""
+    regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _build.load("paged_attention").paged_attention_attrs(
+        _DTYPE_CODE[dtype], G, ctypes.byref(regs), ctypes.byref(local),
+        ctypes.byref(smem))
+    _build.check(err, "paged_attention_attrs")
+    return {"registers": regs.value, "local_bytes": local.value,
+            "smem_bytes": smem.value}
+
+
 def _paged_cuda(q, k_pages, v_pages, page_table, lengths):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"paged_attention kernel takes float32/bfloat16, "
@@ -51,22 +118,23 @@ def _paged_cuda(q, k_pages, v_pages, page_table, lengths):
     B, H, D = q.shape
     _, page, Hk, _ = k_pages.shape
     MP = page_table.shape[1]
-    if D > 256 or MP > 65535:
-        raise ValueError(f"paged_attention kernel takes D <= 256 and at "
-                         f"most 65535 pages a row, got D={D}, MP={MP}")
-    fn = _build.load("paged_attention").paged_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if D not in HEAD_DIMS or (H // Hk) * D * q.element_size() // 16 \
+            > MAX_OWN * THREADS:
+        raise ValueError(f"paged_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS} and at most {MAX_OWN * THREADS} "
+                         f"16-byte words across a kv head's query heads; "
+                         f"got D={D}, G={H // Hk}, {q.dtype}")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_attention kernel needs 16-byte aligned pages")
+    pl = plan(B, H, Hk, D, page, MP)
     o = torch.empty_like(q)
-    # per-page partial (acc[D], max, sum) of every (row, kv head, page, head)
-    part = torch.empty(B * Hk * MP * (H // Hk) * (D + 2),
-                       dtype=torch.float32, device=q.device)
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), lengths.data_ptr(), part.data_ptr(),
-             o.data_ptr(), B, H, Hk, D, page, MP, 1.0 / math.sqrt(D),
-             _DTYPE_CODE[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+    part = _build.scratch("paged_attention", q.device,
+                          pl.scratch).data_ptr() if pl.scratch else None
+    err = _build.fn(*LAUNCH)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), lengths.data_ptr(), part, o.data_ptr(),
+        B, H, Hk, D, page, MP, pl.pages_per_split, pl.n_split,
+        1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype], _build.stream(q.device))
     _build.check(err, "paged_attention_launch")
     return o
 

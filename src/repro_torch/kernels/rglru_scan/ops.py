@@ -29,21 +29,28 @@ def _check(log_a, gated, h0):
         raise ValueError("all inputs must be on one device")
 
 
+# the C entry point: log_a, gated, h0, h, h_final, B, S, W, stream
+LAUNCH = ("rglru_scan", "rglru_scan_launch",
+          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def _f32(t):
+    """``t`` as contiguous float32, copied only when it is not already."""
+    if t.dtype != torch.float32:
+        t = t.float()
+    return t if t.is_contiguous() else t.contiguous()
+
+
 def _rglru_cuda(log_a, gated, h0):
     B, S, W = log_a.shape
-    la = log_a.float().contiguous()
-    g = gated.float().contiguous()
-    h0 = None if h0 is None else h0.float().contiguous()
-    fn = _build.load("rglru_scan").rglru_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    la, g = _f32(log_a), _f32(gated)
+    h0 = None if h0 is None else _f32(h0)
     h = torch.empty((B, S, W), dtype=torch.float32, device=la.device)
     hT = torch.empty((B, W), dtype=torch.float32, device=la.device)
-    err = fn(la.data_ptr(), g.data_ptr(),
-             0 if h0 is None else h0.data_ptr(), h.data_ptr(),
-             hT.data_ptr(), B, S, W,
-             torch.cuda.current_stream(la.device).cuda_stream)
+    err = _build.fn(*LAUNCH)(la.data_ptr(), g.data_ptr(),
+                             None if h0 is None else h0.data_ptr(),
+                             h.data_ptr(), hT.data_ptr(), B, S, W,
+                             _build.stream(la.device))
     _build.check(err, "rglru_scan_launch")
     return h, hT
 

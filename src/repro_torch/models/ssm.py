@@ -194,11 +194,8 @@ def _block_chunk(cfg, lp, u, conv_state, h0, valid_len: int):
         dt = F.pad(dt, (0, 0, 0, pad))
     if _use_kernels(cfg):
         from repro_torch.kernels.ssd_scan import ssd_scan_op
-        rep = H // G
-        y, h_final = ssd_scan_op(
-            xs * dt[..., None], dt * A,
-            torch.repeat_interleave(Bm, rep, dim=2),
-            torch.repeat_interleave(Cm, rep, dim=2), Q, h0=h0)
+        y, h_final = ssd_scan_op(xs * dt[..., None], dt * A, Bm, Cm, Q,
+                                 h0=h0)            # group-level B and C
         y = y + lp["D"][None, None, :, None] * xs              # skip term
     else:
         y, h_final = ssd_chunked(xs, dt, A, Bm, Cm, lp["D"], Q, h0)

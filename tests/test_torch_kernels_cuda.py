@@ -172,6 +172,63 @@ def test_paged_kernel_matches_plain(cuda, B, H, Hk, D, page, P, MP, dtype):
     np.testing.assert_allclose(f32(got), want, **tol(dtype))
 
 
+# (B, H, Hk, D, page, MP, lengths): B = 1 over 4096 positions (32
+# one-page splits), the engine shape (4 splits of 2 pages), lengths on
+# page and split edges, float32's widest rows, MQA at head_dim 256
+PAGED_EDGES = [
+    (1, 16, 8, 128, 128, 32, [4096]),
+    (1, 16, 8, 128, 128, 32, [1]),
+    (8, 16, 8, 128, 128, 8, [1, 100, 257, 400, 512, 700, 731, 1024]),
+    (8, 16, 8, 128, 128, 8, [128, 129, 255, 256, 257, 511, 512, 513]),
+    (4, 32, 2, 128, 16, 64, [16, 17, 64, 1024]),
+    (2, 8, 1, 256, 128, 8, [300, 1024]),
+]
+
+
+def paged_edge_inputs(rng, B, H, Hk, D, page, MP, lengths, dtype):
+    """Pages drawn as a permutation of the pool: a shuffled page table."""
+    P = B * MP
+    q = rand(rng, (B, H, D), dtype)
+    kp = rand(rng, (P, page, Hk, D), dtype)
+    vp = rand(rng, (P, page, Hk, D), dtype)
+    pt = torch.from_numpy(rng.permutation(P).reshape(B, MP).astype(np.int32))
+    ln = torch.tensor(lengths, dtype=torch.int32)
+    return q, kp, vp, pt, ln
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hk,D,page,MP,lengths", PAGED_EDGES)
+def test_paged_split_edges_match_plain(cuda, B, H, Hk, D, page, MP, lengths,
+                                       dtype):
+    """The split-KV grid at many and few splits, lengths on page and split
+    boundaries, a shuffled page table; a second call gives the same bits
+    (the merge reads the splits in order)."""
+    args = paged_edge_inputs(np.random.default_rng(11), B, H, Hk, D, page,
+                             MP, lengths, dtype)
+    want = f32(paged_attention_op(*args))
+    dev = [t.to(cuda) for t in args]
+    n = paged_attention_op.launches
+    got = paged_attention_op(*dev)
+    again = paged_attention_op(*dev)
+    torch.cuda.synchronize()
+    assert paged_attention_op.launches == n + 2
+    np.testing.assert_allclose(f32(got), want, **tol(dtype))
+    assert torch.equal(got, again)
+
+
+def test_paged_zero_length_gives_zero(cuda):
+    """A row with no live position: 0 on the one-split and merge routes."""
+    for MP in (1, 8):
+        args = paged_edge_inputs(np.random.default_rng(12), 2, 4, 2, 64, 128,
+                                 MP, [0, 5], "bfloat16")
+        got = paged_attention_op(*(t.to(cuda) for t in args))
+        torch.cuda.synchronize()
+        assert not got[0].any()
+        np.testing.assert_allclose(f32(got[1]),
+                                   f32(paged_attention_op(*args)[1]),
+                                   **tol("bfloat16"))
+
+
 def ssd_inputs(rng, B, S, H, P, N):
     x = rng.standard_normal((B, S, H, P), np.float32)
     la = -np.abs(rng.standard_normal((B, S, H), np.float32)) * 0.5
@@ -208,6 +265,49 @@ def test_ssd_scan_kernel_chunk_resume(cuda):
     torch.cuda.synchronize()
     np.testing.assert_allclose(f32(torch.cat([y1, y2], 1)), f32(y), **SSD_TOL)
     np.testing.assert_allclose(f32(h2), f32(h), **SSD_TOL)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,G", [(1, 256, 1), (1, 256, 2), (1, 256, 32),
+                                   (1, 1024, 1), (2, 1024, 8)])
+def test_ssd_scan_kernel_group_level(cuda, B, S, G, with_h0):
+    """Group-level Bm/Cm (B,S,G,N) at mamba2-370m width (H=32, P=64,
+    N=128, chunk 128; S = 1024 is 8 chunks) equal the per-head form the
+    plain version gets by repeating each group over its heads."""
+    H, P, N, Q = 32, 64, 128, 128
+    rng = np.random.default_rng(21)
+    x, la, _, _, h0 = ssd_inputs(rng, B, S, H, P, N)
+    Bg = torch.from_numpy(rng.standard_normal((B, S, G, N), np.float32) * .3)
+    Cg = torch.from_numpy(rng.standard_normal((B, S, G, N), np.float32) * .3)
+    h0 = h0 if with_h0 else None
+    want = ssd_scan_op(x, la, Bg.repeat_interleave(H // G, 2),
+                       Cg.repeat_interleave(H // G, 2), Q, h0=h0)
+    got = ssd_scan_op(*(t.to(cuda) for t in (x, la, Bg, Cg)), Q,
+                      h0=None if h0 is None else h0.to(cuda))
+    again = ssd_scan_op(*(t.to(cuda) for t in (x, la, Bg, Cg)), Q,
+                        h0=None if h0 is None else h0.to(cuda))
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        np.testing.assert_allclose(f32(g), f32(w), **SSD_TOL)
+        assert torch.equal(g, a)
+
+
+def test_ssd_scan_kernel_group_resume(cuda):
+    """Group-level chunk resume: 8 chunks as two calls of 4 through h0."""
+    B, S, H, P, N, Q, G = 1, 1024, 32, 64, 128, 128, 1
+    rng = np.random.default_rng(22)
+    x, la, _, _, h0 = [t.to(cuda) for t in ssd_inputs(rng, B, S, H, P, N)]
+    Bg, Cg = (torch.from_numpy(rng.standard_normal((B, S, G, N), np.float32)
+                               * .3).to(cuda) for _ in range(2))
+    y, h = ssd_scan_op(x, la, Bg, Cg, Q, h0=h0)
+    c = S // 2
+    y1, h1 = ssd_scan_op(x[:, :c], la[:, :c], Bg[:, :c], Cg[:, :c], Q, h0=h0)
+    y2, h2 = ssd_scan_op(x[:, c:], la[:, c:], Bg[:, c:], Cg[:, c:], Q, h0=h1)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(f32(torch.cat([y1, y2], 1)), f32(y), **SSD_TOL)
+    np.testing.assert_allclose(f32(h2), f32(h), **SSD_TOL)
+    want = ssd_scan_op(*(t.cpu() for t in (x, la, Bg, Cg)), Q, h0=h0.cpu())
+    np.testing.assert_allclose(f32(h), f32(want[1]), **SSD_TOL)
 
 
 @pytest.mark.parametrize("with_h0", [False, True])

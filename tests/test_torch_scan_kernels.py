@@ -26,6 +26,7 @@ from repro.kernels.ssd_scan import ssd_scan_ref as jax_ssd_ref  # noqa: E402
 from repro_torch.kernels import rglru_scan_op, ssd_scan_op  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_phases_ref  # noqa: E402
 
 SSD_TOL = dict(rtol=2e-4, atol=2e-4)
 RGLRU_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -97,6 +98,64 @@ def test_ssd_chunk_resume_matches_full():
     close(h2, jh, SSD_TOL)
 
 
+def group_inputs(B, S, H, P, N, G, seed):
+    """Group-level Bm/Cm (B,S,G,N) beside the other scan inputs."""
+    x, la, _, _, h0 = ssd_inputs(B, S, H, P, N, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    Bg = rng.standard_normal((B, S, G, N), np.float32) * 0.3
+    Cg = rng.standard_normal((B, S, G, N), np.float32) * 0.3
+    return x, la, Bg, Cg, h0
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_ssd_group_level_matches_pallas_on_repeated(G):
+    """ssd_scan_op with group-level Bm/Cm (G in {1, 2, H}, H = 4) equals
+    the JAX ssd_scan_op fed the jnp.repeat'ed per-head inputs."""
+    import jax.numpy as jnp
+    B, S, H, P, N, Q = 2, 64, 4, 16, 16, 16
+    x, la, Bg, Cg, h0 = group_inputs(B, S, H, P, N, G, seed=9)
+    Bh, Ch = (np.asarray(jnp.repeat(jnp.asarray(a), H // G, axis=2))
+              for a in (Bg, Cg))
+    jy, jh = jax_ssd(x, la, Bh, Ch, chunk=Q, h0=h0, interpret=True)
+    y, h = ssd_scan_op(*t(x, la, Bg, Cg), Q, h0=t(h0)[0])
+    close(y, jy, SSD_TOL)
+    close(h, jh, SSD_TOL)
+    y2, h2 = ssd_scan_phases_ref(*t(x, la, Bg, Cg), Q, t(h0)[0])
+    close(y2, jy, SSD_TOL)
+    close(h2, jh, SSD_TOL)
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2, 8])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_phases_twin_matches_sequential_and_pallas(n_chunks, with_h0):
+    """The kernel's three-phase arithmetic (C.B^T once per group, the
+    chunk-parallel intra-chunk y and state terms, the sequential state
+    pass) equals the sequential recurrence and the Pallas kernel."""
+    B, H, P, N, Q = 2, 3, 8, 16, 16
+    S = n_chunks * Q
+    x, la, Bm, Cm, h0 = ssd_inputs(B, S, H, P, N, seed=10 + n_chunks)
+    h0 = h0 if with_h0 else None
+    jy, jh = jax_ssd(x, la, Bm, Cm, chunk=Q, h0=h0, interpret=True)
+    y, h = ssd_scan_phases_ref(*t(x, la, Bm, Cm), Q, t(h0)[0])
+    ry, rh = ssd_scan_ref(*t(x, la, Bm, Cm, h0))
+    for want_y, want_h in ((jy, jh), (ry, rh)):
+        close(y, want_y, SSD_TOL)
+        close(h, want_h, SSD_TOL)
+
+
+def test_ssd_phases_twin_takes_no_exp_of_a_positive_exponent():
+    """Strong decay (la down to -60 a step) over a long chunk: the decay is
+    formed only where j <= i, so nothing overflows into inf * 0 = NaN."""
+    B, S, H, P, N, Q = 1, 64, 2, 8, 8, 64
+    x, la, Bm, Cm, _ = ssd_inputs(B, S, H, P, N, seed=13)
+    la = la * 120.0
+    y, h = ssd_scan_phases_ref(*t(x, la, Bm, Cm), Q)
+    ry, rh = ssd_scan_ref(*t(x, la, Bm, Cm))
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    close(y, ry, SSD_TOL)
+    close(h, rh, SSD_TOL)
+
+
 @pytest.mark.parametrize("with_h0", [False, True])
 @pytest.mark.parametrize("B,S,W,bs,bw", RGLRU_SHAPES)
 def test_rglru_plain_matches_pallas(B, S, W, bs, bw, with_h0):
@@ -150,6 +209,9 @@ def test_scan_wrappers_reject_bad_inputs():
         ssd_scan_op(x, la, Bm, Cm[..., :4], 16)
     with pytest.raises(ValueError):              # h0 of another head count
         ssd_scan_op(x, la, Bm, Cm, 16, h0=h0[:, :1])
+    x3, la3, Bm3, Cm3, _ = t(*ssd_inputs(1, 32, 3, 16, 8))
+    with pytest.raises(ValueError):              # 2 groups over 3 heads
+        ssd_scan_op(x3, la3, Bm3[:, :, :2], Cm3[:, :, :2], 16)
     la2, b2, h02 = t(*rglru_inputs(1, 8, 16))
     with pytest.raises(ValueError):
         rglru_scan_op(la2, b2[:, :4])
