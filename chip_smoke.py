@@ -311,12 +311,13 @@ def check_scan_kernels():
     mamba2-370m (H=32, P=64, N=128, chunk 128, B and C at the group level
     the model passes, n_groups 1) and of recurrentgemma-9b (lru_width
     4096), each from a random state; also batch 8, B and C repeated per
-    head, two groups, a two-half chunk resume through h0, and a 160-token
-    bucket for rglru_scan (a length the TPU kernel's 128-token tiles
-    refuse). The ssd bound counts C.B^T once per group and chunk, as the
-    kernel computes it, at the rate of the tensor cores that do its
-    products (3xTF32). No single PyTorch call computes either function,
-    so library_ms is null."""
+    head, two groups, a two-half chunk resume through h0, and for
+    rglru_scan a 160-token bucket (a length the TPU kernel's 128-token
+    tiles refuse), a whole 1024-slot prompt and a single step. The ssd
+    bound counts C.B^T once per group and chunk, as the kernel computes
+    it, at the rate of the tensor cores that do its products (3xTF32). No
+    single PyTorch call computes either function, so library_ms is
+    null."""
     from repro_torch.kernels import rglru_scan_op, ssd_scan_op
     from repro_torch.kernels.rglru_scan import rglru_scan_ref
     from repro_torch.kernels.ssd_scan import ssd_scan_ref
@@ -383,21 +384,31 @@ def check_scan_kernels():
         library_ms=None,
         bound=bound(nbytes(*main_in, *got), flops, TF32X3_FLOPS))
 
+    from repro_torch.kernels.rglru_scan.ops import kernel_attrs as rg_attrs
+    from repro_torch.kernels.rglru_scan.ops import plan as rg_plan
     la, gt, h0 = main_in = rglru_inputs(1, 256)
     got = rglru_scan_op(la, gt, h0)
     want = rglru_scan_ref(la, gt, h0)
     pairs = list(zip(got, want))
-    for B, S in ((1, 160), (8, 256)):
+    for B, S in ((1, 160), (8, 256), (1, 1024), (1, 1)):
         a = rglru_inputs(B, S)
         pairs += list(zip(rglru_scan_op(*a), rglru_scan_ref(*a)))
     torch.cuda.synchronize()
     err, ok = err_ok(pairs, RGLRU_TOL)
+    pl = rg_plan(1, 256, 4096)
+    log({"rglru_scan_plans": {f"({B},{S},4096)": rg_plan(B, S, 4096)._asdict()
+                              for B, S in ((1, 256), (1, 160), (8, 256),
+                                           (1, 1024), (1, 1))},
+         "rglru_cluster": rg_attrs(pl),
+         "rglru_cluster_4_rounds": rg_attrs(rg_plan(1, 1024, 4096))})
     sets = copies(list(main_in))
     rglru = dict(
         name="rglru_scan", wrapper=rglru_scan_op,
         source="src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan/rglru_scan.py:60",
-        shape="log_a/gated(1,256,4096) h0 f32; + (1,160,4096), (8,256,4096)",
+        shape=f"log_a/gated(1,256,4096) h0 f32, route {pl.route}, "
+              f"{pl.blocks} blocks in clusters of {pl.cluster}; + "
+              "(1,160,4096), (8,256,4096), (1,1024,4096), (1,1,4096)",
         max_abs_err=err, ok=ok,
         ms=time_ms(lambda *a: rglru_scan_op(*a), sets, 200),
         plain_ms=time_ms(lambda *a: rglru_scan_ref(*a), sets, 50),
@@ -624,7 +635,8 @@ def paths():
              ("flash_fwd", "paged_decode", "paged_merge")),
             ("mamba2-370m", (ssd_scan_op,), ("ssd_cb", "ssd_chunk",
                                             "ssd_state")),
-            ("recurrentgemma-9b", (rglru_scan_op,), ("rglru_scan",)))
+            ("recurrentgemma-9b", (rglru_scan_op,), ("rglru_cluster",
+                                                     "rglru_channel")))
 
 
 def main() -> int:

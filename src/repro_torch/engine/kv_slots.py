@@ -28,7 +28,7 @@ class SlotKVCache(StateSlotsBase):
 
     def __init__(self, n_layers: int, n_slots: int, capacity: int,
                  n_kv_heads: int, head_dim: int, dtype=torch.float32,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__(n_slots, capacity)
         self.device = torch.device(device)
         self.k = torch.zeros((n_layers, n_slots, capacity, n_kv_heads,

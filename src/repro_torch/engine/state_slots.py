@@ -154,7 +154,7 @@ class SSMStateSlots(_FixedStateSlots):
     slabs — O(1) bytes per slot regardless of context length."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int, capacity: int,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__(n_slots, capacity)
         from repro_torch.models import ssm
         cache = ssm.init_cache(cfg, n_slots, device=device)
@@ -175,7 +175,7 @@ class RecurrentStateSlots(_FixedStateSlots):
     context length, same as ssm."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int, capacity: int,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__(n_slots, capacity)
         from repro_torch.models import hybrid
         self.cache = hybrid.init_cache(cfg, n_slots, capacity, device=device)

@@ -280,7 +280,7 @@ def decode_step(cfg: ModelConfig, params, cache, x, pos, *, window=None,
     return _final(cfg, params, x), cache
 
 
-def init_cache(cfg: ModelConfig, batch: int, capacity: int, device="cpu"):
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, device="cuda"):
     """Empty decode cache for ``batch`` fresh streams: zero k/v rings with
     pos_map -1 (no valid slots) and zero recurrent (conv, h) state."""
     from repro_torch.weights import torch_dtype

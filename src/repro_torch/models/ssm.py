@@ -203,7 +203,7 @@ def _block_chunk(cfg, lp, u, conv_state, h0, valid_len: int):
     return _out(cfg, lp, u, y, z), new_conv, h_final
 
 
-def init_cache(cfg: ModelConfig, batch: int, capacity=None, device="cpu"):
+def init_cache(cfg: ModelConfig, batch: int, capacity=None, device="cuda"):
     """Zero decode state for ``batch`` fresh streams — O(1) in context
     length. ``capacity`` is accepted for interface parity with attention
     caches."""

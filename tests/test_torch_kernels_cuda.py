@@ -10,7 +10,8 @@ qwen3-1.7b, mamba2-370m and recurrentgemma-9b width. Tolerances: attention
 float32 at 2e-5 (other summation orders), bfloat16 at 2e-2 (one bf16
 rounding of the output); the scans those of tests/test_kernels.py, ssd_scan
 at 2e-4 (the chunked form against the sequential recurrence) and
-rglru_scan at 1e-5 (a sequential walk against a doubling scan).
+rglru_scan at 1e-5 (a segmented walk with a composed carry against a
+doubling scan).
 """
 import numpy as np
 import pytest
@@ -52,8 +53,12 @@ RGLRU_SHAPES = [                  # B, S, W
     (3, 32, 128),
     (1, 256, 4096),               # a 256-token chunk, recurrentgemma-9b
     (1, 160, 4096),               # a 160-token bucket (S not a tile multiple)
-    (8, 256, 4096),
+    (8, 256, 4096),               # tiles fill the card: rounds, no cluster
     (2, 7, 100),                  # ragged S and W
+    (1, 1, 4096),                 # one step
+    (1, 33, 4096),                # a cluster of 3 segments of 11 steps
+    (1, 1024, 4096),              # a whole 1024-slot prompt: 4 rounds
+    (2, 256, 100),                # W not a whole tile: the channel route
 ]
 SSD_TOL = dict(rtol=2e-4, atol=2e-4)
 RGLRU_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -325,6 +330,57 @@ def test_rglru_scan_kernel_matches_plain(cuda, B, S, W, with_h0):
                         None if h0 is None else h0.to(cuda))
     torch.cuda.synchronize()
     assert rglru_scan_op.launches == n + 1
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(f32(a), f32(b), **RGLRU_TOL)
+
+
+def rglru_case(cuda, B, S, W, seed):
+    rng = np.random.default_rng(seed)
+    la = -np.abs(rng.standard_normal((B, S, W), np.float32)) * 0.3
+    return [torch.from_numpy(a).to(cuda) for a in (
+        la, rng.standard_normal((B, S, W), np.float32),
+        rng.standard_normal((B, W), np.float32))]
+
+
+@pytest.mark.parametrize("B,S,W", [(1, 256, 4096), (1, 1024, 4096),
+                                   (8, 256, 4096), (1, 33, 4096),
+                                   (2, 256, 100)])
+def test_rglru_scan_kernel_is_deterministic(cuda, B, S, W):
+    """The cluster carry composes the segments in a fixed order: two calls
+    on the same inputs give the same bits."""
+    la, g, h0 = rglru_case(cuda, B, S, W, 23)
+    a = rglru_scan_op(la, g, h0)
+    b = rglru_scan_op(la, g, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("cuts", [(256, 512, 768), (160, 480, 1000)])
+def test_rglru_scan_kernel_chunk_resume(cuda, cuts):
+    """A 1024-step scan as chunks (256-step chunks; ragged 32-step
+    buckets), each seeded from the last one's h_final, matches the whole
+    scan."""
+    la, g, h0 = rglru_case(cuda, 1, 1024, 4096, 24)
+    y, hT = rglru_scan_op(la, g, h0)
+    parts, h = [], h0
+    for a, b in zip((0,) + cuts, cuts + (1024,)):
+        yc, h = rglru_scan_op(la[:, a:b], g[:, a:b], h)
+        parts.append(yc)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(f32(torch.cat(parts, 1)), f32(y), **RGLRU_TOL)
+    np.testing.assert_allclose(f32(h), f32(hT), **RGLRU_TOL)
+
+
+def test_rglru_scan_kernel_takes_unaligned_inputs(cuda):
+    """Contiguous inputs whose data is not 16-byte aligned (a view at an
+    odd offset) reach the cluster route through an aligned copy."""
+    la, g, h0 = rglru_case(cuda, 1, 64, 4096, 25)
+    odd = [torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+           .copy_(t) for t in (la, g)]
+    assert odd[0].data_ptr() % 16 and odd[0].is_contiguous()
+    want = rglru_scan_op(la.cpu(), g.cpu(), h0.cpu())
+    got = rglru_scan_op(*odd, h0)
+    torch.cuda.synchronize()
     for a, b in zip(got, want):
         np.testing.assert_allclose(f32(a), f32(b), **RGLRU_TOL)
 

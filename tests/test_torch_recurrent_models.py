@@ -15,6 +15,7 @@ Tolerance: logits and states within 2e-5 absolute and relative (float32
 sums in other orders); positions exactly. TF32 is off.
 """
 import copy
+import inspect
 
 import numpy as np
 import pytest
@@ -204,8 +205,21 @@ def test_decode_step_writes_only_active_rows(setup):
 
 def test_kernel_switch_errors(setup):
     _, _, _, tcfg, tp, tm = setup
-    cache = tm.init_cache(tcfg, 1, 64)
+    cache = tm.init_cache(tcfg, 1, 64, device="cpu")
     x = tm.embed_tokens(tcfg, tp, torch.ones((1, 16), dtype=torch.int32))
     with pytest.raises(ValueError):
         tm.prefill_chunk(tcfg.replace(attn_impl="pallas"), tp, cache, x, 0,
                          valid_len=16)
+
+
+@pytest.mark.parametrize("ctor", [
+    "engine.kv_slots.SlotKVCache", "engine.state_slots.SSMStateSlots",
+    "engine.state_slots.RecurrentStateSlots", "models.ssm.init_cache",
+    "models.hybrid.init_cache"])
+def test_state_containers_default_to_the_card(ctor):
+    """The port's state containers, like its other entry points, run on the
+    card unless the caller asks for the CPU (as these tests do)."""
+    import importlib
+    mod, name = ctor.rsplit(".", 1)
+    fn = getattr(importlib.import_module(f"repro_torch.{mod}"), name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

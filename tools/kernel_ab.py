@@ -11,8 +11,12 @@ check shapes:
 - SSD scan: one 256-token chunk of mamba2-370m (x (1,256,32,64), N=128,
   chunk 128, h0). The old kernel gets B and C repeated per head, as its
   caller did, the new one the group-level tensors;
-- ``--rglru``: the RG-LRU wrapper before and after its repair, around the
-  current kernel.
+- RG-LRU scan: one 256-token chunk of recurrentgemma-9b (log_a/gated
+  (1,256,4096), h0) and the whole 1024-slot prompt (1,1024,4096), with
+  the max error of each kernel against the plain version, the new
+  kernel's attributes, ``torch.add`` over the same bytes as a yardstick of
+  streaming, and optional variants with the current entry point
+  (``--rglru-alt``), each in turns with the current kernel.
 
 Each old source comes from git and is built by nvcc with the port's flags
 into a temporary directory:
@@ -20,15 +24,17 @@ into a temporary directory:
     git show <commit>:src/repro_torch/kernels/flash_prefill/csrc/flash_prefill.cu > old_flash.cu
     git show <commit>:src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu > old_paged.cu
     git show <commit>:src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu > old_ssd.cu
+    git show <commit>:src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu > old_rglru.cu
     python3 tools/kernel_ab.py [--flash old_flash.cu] [--paged old_paged.cu] \\
-        [--ssd old_ssd.cu] [--rglru] [--iters 200]
+        [--ssd old_ssd.cu] [--rglru old_rglru.cu] [--iters 200]
 
 ``OLD_ENTRY`` lists the C entry points the sources had before their
 redesigns (at any commit up to 01c70cf for flash, up to 90943cd for paged
-decode and the SSD scan). The old paged, ssd and rglru calls are wrapped
-as their wrappers were (ctypes signature set, scratch allocated and
-``torch.cuda.current_stream`` read on every call), so "call ms" compares
-the wrappers too. Times are
+decode and the SSD scan, up to 0b0fa41 for the RG-LRU scan). The old paged
+and ssd calls are wrapped as their wrappers were (ctypes signature set,
+scratch allocated and ``torch.cuda.current_stream`` read on every call),
+so "call ms" compares the wrappers too; the old RG-LRU call as its last
+wrapper was (signature set once, raw stream). Times are
 chip_smoke.py's: device time per call summed by torch.profiler, and
 CUDA-event time per call, over inputs cycled through >160 MB of copies.
 Prints one JSON line per measurement and a summary line. Needs one CUDA
@@ -60,17 +66,20 @@ OLD_ENTRY = {
                         [_P] * 7 + [_I] * 6 + [_F, _I, _P]),
     # x, la, Bm, Cm, h0, y, h_final, B, S, H, P, N, Q, stream
     "ssd_scan": ("ssd_scan_launch", [_P] * 7 + [_I] * 6 + [_P]),
+    # log_a, gated, h0, h, h_final, B, S, W, stream
+    "rglru_scan": ("rglru_scan_launch", [_P] * 5 + [_I] * 3 + [_P]),
 }
 
 
-def build_old(src: Path, out_dir: Path, name: str):
-    """The old source's C entry point (``OLD_ENTRY[name]``), built into
-    ``out_dir``, its signature set."""
+def build_old(src: Path, out_dir: Path, name: str, entry=None,
+              tag: str = "old"):
+    """The old source's C entry point (``entry``, else ``OLD_ENTRY[name]``),
+    built into ``out_dir``, its signature set."""
     from repro_torch.kernels import _build
-    lib = out_dir / f"lib{name}_old.so"
+    lib = out_dir / f"lib{name}_{tag}.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
                     str(src)], check=True, capture_output=True, text=True)
-    symbol, argtypes = OLD_ENTRY[name]
+    symbol, argtypes = entry or OLD_ENTRY[name]
     fn = getattr(ctypes.CDLL(str(lib)), symbol)
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return fn
@@ -339,36 +348,83 @@ def ssd_ab(old_src, tmp, iters, cs):
             "attrs": kernel_attrs()}
 
 
-def rglru_ab(iters, cs):
-    """The RG-LRU wrapper before (signature, current_stream and copies on
-    every call) and after, around the same kernel."""
+def rglru_ab(old_src, alt_srcs, tmp, iters, cs):
     from repro_torch.kernels import _build, rglru_scan_op
-    from repro_torch.kernels.rglru_scan.ops import LAUNCH
+    from repro_torch.kernels.rglru_scan import rglru_scan_ref
+    from repro_torch.kernels.rglru_scan.ops import (LAUNCH, ROUTES, _check,
+                                                    _f32, kernel_attrs, plan)
+    old_fn = build_old(old_src, tmp, "rglru_scan")
+    alts = {src.name: build_old(src, tmp, "rglru_scan", LAUNCH[1:], f"alt{i}")
+            for i, src in enumerate(alt_srcs)}
 
-    def old(la, gt, h0):
-        fn = _build.load("rglru_scan").rglru_scan_launch
-        fn.argtypes, fn.restype = LAUNCH[2], ctypes.c_int
-        la, gt, h0 = (t.float().contiguous() for t in (la, gt, h0))
+    def alt(fn):                                 # the current wrapper's call
+        def call(la, gt, h0):
+            _check(la, gt, h0)
+            B, S, W = la.shape
+            pl = plan(B, S, W)
+            h = torch.empty((B, S, W), dtype=torch.float32, device=la.device)
+            hT = torch.empty((B, W), dtype=torch.float32, device=la.device)
+            err = fn(la.data_ptr(), gt.data_ptr(), h0.data_ptr(),
+                     h.data_ptr(), hT.data_ptr(), B, S, W, ROUTES[pl.route],
+                     pl.cluster, pl.seg, pl.run, pl.rounds,
+                     _build.stream(la.device))
+            if err:
+                raise RuntimeError(f"rglru_scan_launch: error {err}")
+            return h, hT
+        return call
+
+    def old(la, gt, h0):                         # as the old wrapper called it
+        _check(la, gt, h0)
+        la, gt, h0 = _f32(la), _f32(gt), _f32(h0)
         B, S, W = la.shape
         h = torch.empty((B, S, W), dtype=torch.float32, device=la.device)
         hT = torch.empty((B, W), dtype=torch.float32, device=la.device)
-        err = fn(la.data_ptr(), gt.data_ptr(), h0.data_ptr(), h.data_ptr(),
-                 hT.data_ptr(), B, S, W,
-                 torch.cuda.current_stream(la.device).cuda_stream)
+        err = old_fn(la.data_ptr(), gt.data_ptr(), h0.data_ptr(),
+                     h.data_ptr(), hT.data_ptr(), B, S, W,
+                     _build.stream(la.device))
         if err:
-            raise RuntimeError(f"rglru_scan_launch: error {err}")
+            raise RuntimeError(f"old rglru_scan_launch: error {err}")
         return h, hT
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
-    la = -torch.rand(1, 256, 4096, generator=g, device=dev) * 0.3
-    gt = torch.randn(1, 256, 4096, generator=g, device=dev)
-    h0 = torch.randn(1, 4096, generator=g, device=dev)
-    sets = cs.copies([la, gt, h0])
-    return {"shape": "log_a/gated(1,256,4096) h0 f32",
-            **turns("rglru_scan_wrapper",
+    out = {}
+    for S in (256, 1024):
+        la = -torch.randn(1, S, 4096, generator=g, device=dev).abs() * 0.3
+        gt = torch.randn(1, S, 4096, generator=g, device=dev)
+        h0 = torch.randn(1, 4096, generator=g, device=dev)
+        want = rglru_scan_ref(la, gt, h0)
+        errs = {f"{w}_max_abs_err": max(float((a - b).abs().max())
+                                        for a, b in zip(f(la, gt, h0), want))
+                for w, f in (("old", old), ("new", rglru_scan_op))}
+        pl = plan(1, S, 4096)
+        sets = cs.copies([la, gt, h0])
+        # variants with the current entry point, each in turns with the
+        # current kernel (reported as "old")
+        variants = {}
+        for name, fn in alts.items():
+            run = alt(fn)
+            variants[name] = {
+                "max_abs_err": max(float((a - b).abs().max())
+                                   for a, b in zip(run(la, gt, h0), want)),
+                **turns(f"rglru_scan (1,{S},4096) {name}",
+                        {"old": run, "new": rglru_scan_op}, sets, iters,
+                        cs.time_ms)}
+        # an elementwise op that moves the same bytes (two inputs read,
+        # one output written): what streaming alone takes on this card
+        hs = torch.empty_like(la)
+        same = cs.time_ms(lambda a, b, c: torch.add(a, b, out=hs), sets,
+                          iters)
+        out[f"(1,{S},4096)"] = {
+            "shape": f"log_a/gated(1,{S},4096) h0 f32",
+            **turns(f"rglru_scan (1,{S},4096)",
                     {"old": old, "new": rglru_scan_op}, sets, iters,
-                    cs.time_ms)}
+                    cs.time_ms),
+            **errs, "plan": pl._asdict(), "attrs": kernel_attrs(pl),
+            "bound_ms": cs.bound(cs.nbytes(la, gt, h0, *want),
+                                 2.0 * la.numel(), cs.F32_FLOPS)[0],
+            "same_bytes_add_device_ms": same[0], "variants": variants}
+    return out
 
 
 def _ints(a: str):
@@ -380,8 +436,10 @@ def main() -> int:
     ap.add_argument("--flash", type=Path, help="an older flash_prefill.cu")
     ap.add_argument("--paged", type=Path, help="an older paged_attention.cu")
     ap.add_argument("--ssd", type=Path, help="an older ssd_scan.cu")
-    ap.add_argument("--rglru", action="store_true",
-                    help="the RG-LRU wrapper before and after its repair")
+    ap.add_argument("--rglru", type=Path, help="an older rglru_scan.cu")
+    ap.add_argument("--rglru-alt", type=Path, action="append", default=[],
+                    help="with --rglru: also time a variant rglru_scan.cu "
+                    "that has the current entry point (repeatable)")
     ap.add_argument("--iters", type=int, default=200)
     ap.add_argument("--splits", type=_ints, default=[],
                     help="flash: also time the raw launch at these kv "
@@ -413,7 +471,8 @@ def main() -> int:
     if args.ssd:
         summary["ssd_scan"] = ssd_ab(args.ssd, out_dir, args.iters, cs)
     if args.rglru:
-        summary["rglru_scan"] = rglru_ab(args.iters, cs)
+        summary["rglru_scan"] = rglru_ab(args.rglru, args.rglru_alt, out_dir,
+                                         args.iters, cs)
     print(json.dumps({"kernel_ab_summary": summary, "card": smi}), flush=True)
     return 0
 
