@@ -12,7 +12,12 @@ For each it compares the kernel path's logits with the reference path's on
 the same weights and tokens, then serves 8 requests through
 ``ArrowEngineCluster`` (2 instances, Arrow policy, prefill -> decode state
 migration) on the kernels, with every launch count set to 0 just before and
-read just after, and checks that every kernel of that path ran.
+read just after, and checks that every kernel of that path ran. The dense
+path is then served again in its two other step modes — legacy
+(pre-fusion) and self-speculative (k = 4, a 14-layer draft on paged decode,
+the verify on flash_prefill_dyn at k+1 rows) — each read the same way, with
+the number of its streams equal to the fused ones reported; and once more
+in float32 in all three modes, whose streams must be equal id for id.
 
     python3 chip_smoke.py
 
@@ -215,10 +220,13 @@ def check_kernels(cfg):
 
     # flash_chunk: the chunks the serve phase sends against the whole
     # 1024-slot cache (256 tokens at offsets 0, 256, 512, 768 and the
-    # smallest 32-token bucket at 992); timed at offset 512
+    # smallest 32-token bucket at 992), and the speculative verify's k+1 =
+    # 2, 5, 9 rows at offsets that are no multiple of the 64-position kv
+    # tile; timed at 256 tokens at offset 512
     C = 1024
     errs, oks = [], []
-    for Sq, off in ((256, 0), (256, 256), (256, 512), (256, 768), (32, 992)):
+    for Sq, off in ((256, 0), (256, 256), (256, 512), (256, 768), (32, 992),
+                    *((sq, o) for sq in (2, 5, 9) for o in (37, 517, 1015))):
         q, kc, vc = rnd(1, Sq, H, D), rnd(1, C, Hk, D), rnd(1, C, Hk, D)
         got = flash_chunk_op(q, kc, vc, off)
         want = flash_prefill_ref(to_bhsd(q), to_bhsd(kc), to_bhsd(vc),
@@ -230,6 +238,7 @@ def check_kernels(cfg):
              "max_abs_err": errs[-1], "within_tol": oks[-1],
              "plan": plan(1, H, Hk, Sq, C, D, off, None)._asdict()})
     log({"flash_fwd_wgmma": f"head_dim {D}", **wgmma_attrs(D)})
+    flash_verify_timing(H, Hk, D, C, rnd, sdpa, to_bhsd)
     Sq, off = 256, 512
     q, kc, vc = rnd(1, Sq, H, D), rnd(1, C, Hk, D), rnd(1, C, Hk, D)
     T = off + Sq
@@ -246,7 +255,8 @@ def check_kernels(cfg):
         source="src/repro_torch/kernels/flash_prefill/csrc/flash_prefill.cu",
         replaces="src/repro/kernels/flash_prefill/flash_prefill.py:193",
         shape=f"q(1,{Sq},{H},{D}) at offset {off}, kv(1,{C},{Hk},{D}) bf16; "
-              "+ offsets 0, 256, 768 and a 32-token chunk at 992",
+              "+ offsets 0, 256, 768, a 32-token chunk at 992, and 2, 5 "
+              "and 9 rows at offsets 37, 517 and 1015",
         max_abs_err=max(errs), ok=all(oks),
         ms=time_ms(lambda a, b, c: flash_chunk_op(a, b, c, off), sets, 200),
         plain_ms=time_ms(lambda a, b, c: flash_prefill_ref(
@@ -303,6 +313,39 @@ def check_kernels(cfg):
         bound=bound(nbytes, 4.0 * D * H * live)))
 
     return report_rows(rows, BF16_TOL, "sdpa")
+
+
+def flash_verify_timing(H, Hk, D, C, rnd, sdpa, to_bhsd):
+    """Device time of flash_chunk at the speculative verify's shape (k+1 =
+    5 rows at offset 517 of a 1024-slot cache), beside its plain version,
+    SDPA and its bound; logged, not a row of the kernels line."""
+    from repro_torch.kernels import flash_chunk_op
+    from repro_torch.kernels.flash_prefill import flash_prefill_ref
+    from repro_torch.kernels.flash_prefill.ops import plan
+    dev = torch.device("cuda")
+    Sq, off = 5, 517
+    q, kc, vc = rnd(1, Sq, H, D), rnd(1, C, Hk, D), rnd(1, C, Hk, D)
+    T = off + Sq
+    sets = copies([q, kc, vc])
+    qpos = torch.arange(Sq, device=dev)[:, None] + off
+    mask = torch.arange(T, device=dev)[None, :] <= qpos
+    lib_sets = [(to_bhsd(a), to_bhsd(b[:, :T]), to_bhsd(c[:, :T]))
+                for a, b, c in sets]
+    plain_sets = [tuple(to_bhsd(t) for t in s) for s in sets]
+    pairs = Sq * off + Sq * (Sq + 1) // 2
+    b_ms, b_by = bound(2 * (2 * q.numel() + 2 * T * Hk * D),
+                       4.0 * D * H * pairs)
+    ms = time_ms(lambda a, b, c: flash_chunk_op(a, b, c, off), sets, 200)
+    plain = time_ms(lambda a, b, c: flash_prefill_ref(a, b, c, q_offset=off),
+                    plain_sets, 50)
+    lib = time_ms(lambda a, b, c: sdpa(a, b, c, mask=mask), lib_sets, 200)
+    log({"flash_verify_timing": f"q(1,{Sq},{H},{D}) at offset {off}, "
+                                f"kv(1,{C},{Hk},{D}) bf16",
+         "plan": plan(1, H, Hk, Sq, C, D, off, None)._asdict(),
+         "kernel_ms": ms[0], "plain_ms": plain[0], "library_ms": lib[0],
+         "bound_ms": b_ms, "bound_by": b_by,
+         "per_call_event_ms": {"ms": ms[1], "plain_ms": plain[1],
+                               "library_ms": lib[1]}})
 
 
 def check_scan_kernels():
@@ -549,12 +592,14 @@ def check_streams(cfg, handles) -> None:
             raise AssertionError(f"rid {h.rid}: bad stream {toks}")
 
 
-def serve(cfg, params, expect, dev="cuda"):
+def serve(cfg, params, expect, dev="cuda", label="fused", **kw):
     """One engine path: ArrowEngineCluster on the kernels, 8 requests
-    (4 greedy, 4 sampled), prefill on instance 0, decode after migration.
-    Every launch count is set to 0 just before and read just after; each
-    wrapper of ``expect`` (the path's kernels) must have launched. Returns
-    the cluster and the launch counts of this run."""
+    (4 greedy, 4 sampled), prefill on instance 0, decode after migration;
+    ``kw`` picks the step mode (``step_mode``, ``speculate``,
+    ``draft_layers``). Every launch count is set to 0 just before and read
+    just after; each wrapper of ``expect`` (the path's kernels) must have
+    launched. Returns the cluster, the launch counts of this run and the
+    8 token streams."""
     from repro_torch.core import SLO
     from repro_torch.engine import ArrowEngineCluster
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -565,7 +610,8 @@ def serve(cfg, params, expect, dev="cuda"):
     cluster = ArrowEngineCluster(
         cfg.replace(attn_impl="hopper"), n_instances=2, n_prefill=1,
         n_slots=8, capacity=1024, chunk_tokens=256, policy="arrow",
-        slo=SLO(ttft=5.0, tpot=0.5), params=params, seed=0, device=dev)
+        slo=SLO(ttft=5.0, tpot=0.5), params=params, seed=0, device=dev,
+        **kw)
     t_init = time.perf_counter() - t0
     lens, handles = submit_round(cluster, cfg, rng, 0)
     t1 = time.perf_counter()
@@ -573,8 +619,9 @@ def serve(cfg, params, expect, dev="cuda"):
     t_serve = time.perf_counter() - t1
     counts = launch_counts()
     mig = [m["bytes"] for m in cluster.migration_log]
-    log(f"[serve {cfg.arch_id}] {report.summary()}")
-    log({"serve": {"arch": cfg.arch_id, "finished": report.n_finished,
+    log(f"[serve {cfg.arch_id} {cfg.dtype} {label}] {report.summary()}")
+    log({"serve": {"arch": cfg.arch_id, "dtype": cfg.dtype, "mode": label,
+                   "finished": report.n_finished,
                    "requests": len(handles), "prompt_lens": lens,
                    "ttft_p50_s": report.percentile("ttft", 0.5),
                    "ttft_p90_s": report.percentile("ttft", 0.9),
@@ -583,6 +630,7 @@ def serve(cfg, params, expect, dev="cuda"):
                    "migrated_bytes_per_request": sorted(set(mig)),
                    "init_s": t_init, "serve_s": t_serve,
                    "output_tok_per_s": 32 * len(handles) / t_serve,
+                   "speculation": report.speculation,
                    "launches": counts}})
     if report.n_finished != len(handles):
         raise AssertionError(f"only {report.n_finished}/{len(handles)} "
@@ -596,8 +644,63 @@ def serve(cfg, params, expect, dev="cuda"):
     idle = [w.__name__ for w in expect if counts[w.__name__] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on the {cfg.arch_id} "
-                             f"path: {idle}")
-    return cluster, counts
+                             f"{label} path: {idle}")
+    return cluster, counts, [[t for t in h.tokens] for h in handles]
+
+
+def step_modes(cfg, params, expect, fused, dev="cuda"):
+    """The dense path's two other step modes at the fused phase's shape:
+    legacy (pre-fusion) and self-speculative (k = 4, half the layers as
+    the draft). Each must launch the path's kernels; how many of its 8
+    streams equal the fused ones (``fused``) is reported, with the first
+    differing position of each other one, not asserted: in bf16 the
+    verify's (k+1)-row GEMMs and flash round differently from decode's
+    1-row GEMMs and paged kernel, and legacy's one chunk a pass cuts the
+    prompts at other offsets (other GEMM shapes and flash split plans), so
+    a near-tied argmax can flip. Returns each mode's launch counts and
+    streams."""
+    out = {}
+    for label, kw in (("legacy", {"step_mode": "legacy"}),
+                      ("speculative", {"speculate": 4,
+                                       "draft_layers": cfg.n_layers // 2})):
+        cluster, counts, streams = serve(cfg, params, expect, dev, label,
+                                         **kw)
+        differ = [i for i, (a, b) in enumerate(zip(streams, fused)) if a != b]
+        log({"step_mode": label, "dtype": cfg.dtype,
+             "streams_equal_fused": f"{len(fused) - len(differ)}/{len(fused)}",
+             "differ": {i: next(j for j, (x, y) in enumerate(
+                 zip(streams[i], fused[i])) if x != y) for i in differ}})
+        out[label] = (counts, streams)
+        del cluster
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_stream_identity(cfg, expect, dev="cuda"):
+    """qwen3-1.7b at full width in float32 (weights from seed 0, TF32 off,
+    the kernels' float32 routes): the same 8 requests served in the fused
+    sequential, legacy and speculative (k = 4) step modes give the same
+    streams id for id."""
+    from repro_torch.weights import init_params
+    cfg = cfg.replace(dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, g, dev)
+    log({"arch": cfg.arch_id, "dtype": cfg.dtype,
+         "param_bytes": nbytes(*params.values())})
+    cluster, _, fused = serve(cfg, params, expect, dev, "fused")
+    del cluster
+    modes = step_modes(cfg, params, expect, fused, dev)
+    bad = {label: [i for i, (a, b) in enumerate(zip(s, fused)) if a != b]
+           for label, (_, s) in modes.items()}
+    log({"stream_identity_f32": {label: not rows
+                                 for label, rows in bad.items()}})
+    if any(bad.values()):
+        raise AssertionError(f"float32 streams differ from the fused "
+                             f"sequential ones: {bad}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def profile_round(cluster, cfg, tags):
@@ -680,12 +783,20 @@ def main() -> int:
             check_model(cfg, params)
         else:
             check_recurrent_model(cfg, params)
-        cluster, c = serve(cfg, params, expect)
+        cluster, c, streams = serve(cfg, params, expect)
         counts.update({w.__name__: c[w.__name__] for w in expect})
         profile_round(cluster, cfg, tags)
-        del cluster, params                 # free before the next model
+        del cluster
+        if cfg.family == "dense":
+            # the kernels line counts every bf16 serve phase of the path
+            for mc, _ in step_modes(cfg, params, expect, streams).values():
+                for w in expect:
+                    counts[w.__name__] += mc[w.__name__]
+        del params                          # free before the next model
         gc.collect()
         torch.cuda.empty_cache()
+        if cfg.family == "dense":
+            check_stream_identity(cfg, expect)
 
     log({"kernels": [
         {"name": r["name"], "route": r["route"], "source": r["source"],

@@ -18,6 +18,7 @@ stream replays across runs, across KV migration and crash-recovery
 re-prefill. ``temperature <= 0`` selects the exact argmax on the un-cast
 logits. Each entry point returns a single stacked int32 token tensor, which
 the instance fetches with one device-to-host copy at finalize time.
+``spec_decode`` is the dense family's self-speculative round.
 """
 from __future__ import annotations
 
@@ -159,6 +160,92 @@ def prefill_place(cfg, params, k, v, pos_map, tokens, slot, length, temp,
     return sample_tokens(cfg, logits[0, last][None], np.array([temp]),
                         np.array([top_p]), np.array([seed]),
                         np.array([rid]), np.array([last]))
+
+
+# -------------------------------------------- self-speculative decoding
+
+
+def spec_decode(cfg, draft_layers, k_draft, params, k, v, pos_map, tokens,
+                pos, temps, top_ps, seeds, rids, active):
+    """One self-speculative decode round for the whole slot batch.
+
+    Draft: ``k_draft`` sequential batched decode steps through only the
+    first ``draft_layers`` layers (``decode_step`` on the truncated config
+    and the first ``draft_layers`` K/V layers). Each draft token at
+    absolute position ``p`` samples with the *same* key the full model uses
+    at ``p`` (Gumbel-max coupling), so where the truncated logits agree
+    with the full ones the draft is accepted. The draft writes in place, so
+    it leaves nothing behind: ``pos_map`` is restored afterwards, parked
+    rows (``active`` False) keep their position across the draft steps and
+    get back the K/V bytes of their one dummy write, and active rows' draft
+    K/V at ``pos..pos+k-1`` is overwritten by the verify.
+
+    Verify: one full-layer pass over ``[t0, d1..dk]`` of every active row
+    at its own offset (``dense.verify_rows``), sampling the target at every
+    position with its own positional key. The longest prefix of drafts that
+    agrees with the targets is accepted; the emitted tokens are exactly the
+    targets ``g_0..g_a`` — the non-speculative stream, because every
+    target was sampled from the same context with the same key as
+    sequential decode would. Positions past the accepted prefix revert to
+    invalid; parked rows are not verified.
+
+    ``tokens`` (B,1) is a device tensor; ``pos``, the sampling arrays and
+    ``active`` are host arrays. Callers ensure every active row satisfies
+    ``pos + k_draft + 1 <= capacity``. -> (B, k_draft+2) packed
+    ``[a, g_0..g_k]`` (rows of parked slots are zero)."""
+    dev = k.device
+    B = pos_map.shape[0]
+    pos = np.asarray(pos, np.int64)
+    active = np.asarray(active, bool)
+    act = np.nonzero(active)[0]
+    idle = np.nonzero(~active)[0]
+    dcfg = cfg.replace(n_layers=draft_layers)
+    dk, dv = k[:draft_layers], v[:draft_layers]
+    pm0 = pos_map.clone()
+    if idle.size:
+        it = torch.as_tensor(idle, device=dev)
+        ip = torch.as_tensor(pos[idle], device=dev)
+        saved = (dk[:, it, ip].clone(), dv[:, it, ip].clone())
+    tok, drafts = tokens, []
+    for j in range(k_draft):
+        p = pos + j * active
+        x = dense.embed_tokens(dcfg, params, tok)
+        logits, _ = dense.decode_step(
+            dcfg, params, {"k": dk, "v": dv, "pos_map": pos_map}, x,
+            torch.as_tensor(p, device=dev))
+        tok = sample_tokens(cfg, logits[:, 0], temps, top_ps, seeds, rids,
+                            p)[:, None]
+        drafts.append(tok)
+    pos_map.copy_(pm0)
+    if idle.size:
+        dk[:, it, ip], dv[:, it, ip] = saved
+
+    K1 = k_draft + 1
+    rows = torch.as_tensor(act, device=dev)
+    ver = torch.cat([tokens] + drafts, dim=1)[rows]           # (n, k+1)
+    logits = dense.verify_rows(
+        cfg, params, {"k": k, "v": v, "pos_map": pos_map},
+        dense.embed_tokens(cfg, params, ver), act, pos[act])
+    n = len(act)
+    rel = np.arange(K1)
+    g = sample_tokens(
+        cfg, logits.reshape(n * K1, -1),
+        np.repeat(np.asarray(temps)[act], K1),
+        np.repeat(np.asarray(top_ps)[act], K1),
+        np.repeat(np.asarray(seeds)[act], K1),
+        np.repeat(np.asarray(rids)[act], K1),
+        (pos[act][:, None] + rel[None, :]).reshape(-1)).view(n, K1)
+    agree = torch.cumprod((ver[:, 1:] == g[:, :-1]).to(torch.int32), dim=1)
+    a = agree.sum(dim=1).to(torch.int32)              # accepted drafts, 0..k
+    # valid context after the round: [0, off + a]; the rejected draft
+    # positions off+a+1 .. off+k revert to invalid
+    relt = torch.arange(K1, device=dev)
+    posn = torch.as_tensor(pos[act], device=dev)[:, None] + relt[None, :]
+    pos_map[rows[:, None], posn] = torch.where(
+        relt[None, :] > a[:, None], -1, posn).to(torch.int32)
+    packed = torch.zeros((B, K1 + 1), dtype=torch.int32, device=dev)
+    packed[rows] = torch.cat([a[:, None], g], dim=1)
+    return packed
 
 
 # ------------------------------------- constant-state families (ssm, hybrid)

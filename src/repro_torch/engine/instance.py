@@ -11,10 +11,18 @@ a CUDA event; ``finalize_step`` performs the step's single device-to-host
 copy and advances the host bookkeeping, so a cluster can dispatch every
 instance before fetching any.
 
+``speculate=k`` (dense only) turns each decode step whose rows all have
+room into a self-speculative round (``fused_step.spec_decode``): k draft
+tokens from the first ``draft_layers`` layers, one verify over the k+1
+positions, and the longest agreeing prefix plus one token emitted — the
+sequential stream, id for id. ``step_mode="legacy"`` (dense only) keeps the
+pre-fusion per-rid path as the benchmark baseline: per-request sampling
+syncs, a full functional copy of the KV slabs per decode iteration, and a
+host ``pos_map`` round trip per prefill chunk.
+
 The decode state is per family (``repro_torch.engine.state_slots``): KV
 rings for dense models, constant-size recurrent state for Mamba-2 and
-RecurrentGemma. Only the fused step mode is ported; the legacy
-(pre-fusion) mode and self-speculative decoding come in a later slice.
+RecurrentGemma.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.local_scheduler import LocalScheduler
 from repro_torch.engine import fused_step as fs
 from repro_torch.engine.state_slots import make_state_slots
+from repro_torch.models import dense
 
 
 def resolve_device(device) -> torch.device:
@@ -91,36 +100,59 @@ class PendingStep:
     """A dispatched step whose token tensors still live on device. Groups
     are (chunks, device_tokens) pairs; when ``decode_in_group0`` the first
     group carries the decode batch's per-slot tokens stacked ahead of its
-    chunk tokens. ``ready`` polls a CUDA event recorded after the step's
-    work (always True on the CPU, where the work already ran); ``fetch`` is
-    the step's one device-to-host copy."""
+    chunk tokens. ``spec`` holds a speculative round's packed (B, k+2)
+    ``[a, g_0..g_k]`` tensor. ``ready`` polls a CUDA event recorded after
+    the step's work (always True on the CPU, where the work already ran);
+    ``fetch`` is the step's one device-to-host copy."""
 
     def __init__(self, decode_rids: List[int],
                  groups: List[Tuple[List[ChunkWork], Any]],
-                 decode_in_group0: bool = True):
+                 spec: Any = None, decode_in_group0: bool = True):
         self.decode_rids = decode_rids
         self.groups = groups
+        self.spec = spec
         self.decode_in_group0 = decode_in_group0
         self.event = None
-        dev = groups[0][1].device if groups else None
+        parts = self._parts()
+        dev = parts[0].device if parts else None
         if dev is not None and dev.type == "cuda":
             self.event = torch.cuda.Event()
             self.event.record(torch.cuda.current_stream(dev))
 
+    def _parts(self) -> List[torch.Tensor]:
+        head = [] if self.spec is None else [self.spec.reshape(-1)]
+        return head + [arr for _, arr in self.groups]
+
     def ready(self) -> bool:
         return self.event is None or self.event.query()
 
-    def fetch(self) -> List[np.ndarray]:
-        parts = [arr for _, arr in self.groups]
+    def fetch(self) -> Tuple[Optional[np.ndarray], List[np.ndarray]]:
+        """(the packed speculative array or None, each group's tokens),
+        from one device-to-host copy of everything stacked."""
+        parts = self._parts()
         if not parts:
-            return []
+            return None, []
         flat = (parts[0] if len(parts) == 1 else torch.cat(parts)).cpu()
         flat = flat.numpy()
         out, i = [], 0
         for p in parts:
             out.append(flat[i:i + p.shape[0]])
             i += p.shape[0]
-        return out
+        if self.spec is None:
+            return None, out
+        return out[0].reshape(self.spec.shape), out[1:]
+
+
+class _EagerStep:
+    """Legacy-mode stand-in: results were computed synchronously."""
+
+    def __init__(self, decode_out: Dict[int, int],
+                 chunk_out: List[Tuple[int, Optional[int]]]):
+        self.decode_out = decode_out
+        self.chunk_out = chunk_out
+
+    def ready(self) -> bool:
+        return True
 
 
 def _bucket32(n: int, cap: int) -> int:
@@ -137,24 +169,36 @@ class EngineInstance:
         if cfg.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"no engine decode state for family {cfg.family!r}")
-        if step_mode != "fused":
-            raise NotImplementedError(
-                "step_mode='legacy' is not ported yet (later slice)")
+        if step_mode not in ("fused", "legacy"):
+            raise ValueError(f"step_mode must be 'fused' or 'legacy', not "
+                             f"{step_mode!r}")
+        if step_mode == "legacy" and cfg.family != "dense":
+            raise ValueError(f"the {cfg.family} family has no legacy "
+                             "(pre-fusion) step path")
         self.device = resolve_device(device)
         self.run_seed = int(run_seed)
+        self.speculate = int(speculate)
+        self.draft_layers = (int(draft_layers) if draft_layers
+                             else max(1, cfg.n_layers // 2))
         self.iid = iid
         self.cfg = cfg
         self.params = params
         self.capacity = capacity
         self.step_mode = step_mode
-        self.speculate = 0
         self.kv = make_state_slots(cfg, n_slots, capacity, self.device)
         self._ops = fs.ops_for(cfg.family)
-        # a rejected draft cannot roll back a recurrent state update, so
-        # constant-state families serve the plain sequential stream
-        if speculate and self.kv.supports_speculation:
-            raise NotImplementedError(
-                "self-speculative decoding is not ported yet (later slice)")
+        if not self.kv.supports_speculation:
+            # a rejected draft cannot roll back a recurrent state update,
+            # so constant-state families serve the plain sequential stream
+            self.speculate = 0
+        if self.speculate:
+            if step_mode != "fused":
+                raise ValueError("self-speculative decoding needs the fused "
+                                 "step path")
+            if not 1 <= self.draft_layers < cfg.n_layers:
+                raise ValueError(
+                    f"draft_layers must be a strict truncation of the "
+                    f"model: 1 <= {self.draft_layers} < {cfg.n_layers}")
         self.local = LocalScheduler(
             iid, token_budget=chunk_tokens or capacity,
             mixed_chunk_budget=chunk_tokens or 2048,
@@ -205,6 +249,16 @@ class EngineInstance:
             rids[s] = rid & 0x7FFFFFFF
         return temps, tops, seeds, rids
 
+    def _sample_row(self, row, t: float, p: float, sd: int, rid: int,
+                    pos: int) -> int:
+        """Single-row selection for the legacy (eager) paths, through the
+        sampler the fused step uses — legacy and fused streams stay equal
+        under sampling, not just under argmax. One sync per call."""
+        return int(fs.sample_tokens(
+            self.cfg, row[None], np.array([t], np.float32),
+            np.array([p], np.float32), np.array([sd]), np.array([rid]),
+            np.array([pos])).cpu()[0])
+
     # ----------------------------------------------------------- prefill
     def run_prefill(self, rid: int, prompt: np.ndarray) -> int:
         """Whole-prompt prefill; returns the first output token (o_1).
@@ -223,11 +277,23 @@ class EngineInstance:
         padded[:S] = prompt
         s = self.alloc_slot(rid)
         t, p, sd = self._samp_of(rid)
-        tok = fs.prefill_place(
-            self.cfg, self.params, *self.kv.slabs(), self._dev(padded), s, S,
-            t, p, sd & 0x7FFFFFFF, rid & 0x7FFFFFFF)
-        self.kv.len_of[rid] = S
-        tok = int(tok.cpu()[0])
+        sd &= 0x7FFFFFFF
+        rid_m = rid & 0x7FFFFFFF
+        if self.step_mode == "legacy":
+            x = dense.embed_tokens(self.cfg, self.params,
+                                   self._dev(padded)[None])
+            logits, cache = dense.forward_seq(
+                self.cfg, self.params, x,
+                torch.arange(S_pad, device=self.device),
+                cache_capacity=self.capacity)
+            self.kv.place(rid, cache["k"][:, 0], cache["v"][:, 0], S)
+            tok = self._sample_row(logits[0, S - 1], t, p, sd, rid_m, S - 1)
+        else:
+            tok = fs.prefill_place(
+                self.cfg, self.params, *self.kv.slabs(), self._dev(padded),
+                s, S, t, p, sd, rid_m)
+            self.kv.len_of[rid] = S
+            tok = int(tok.cpu()[0])
         self.last_token[rid] = tok
         self.generated[rid] = [tok]
         return tok
@@ -275,7 +341,15 @@ class EngineInstance:
         :meth:`finalize_step`."""
         if not decode_rids and not chunks:
             return None
+        if self.step_mode == "legacy":
+            return self._legacy_step(decode_rids, chunks)
         dec_args = None
+        spec = None
+        # speculative round: every active row must fit its k drafts plus
+        # the bonus token; otherwise fall back to plain decode this step
+        use_spec = bool(self.speculate and decode_rids and
+                        all(self.kv.len_of[r] + self.speculate + 1
+                            <= self.capacity for r in decode_rids))
         if decode_rids:
             B = self.kv.n_slots
             tokens = np.zeros((B, 1), np.int32)
@@ -284,7 +358,8 @@ class EngineInstance:
             # Inactive-but-occupied slots (e.g. parked awaiting migration)
             # still get a batched dummy write; aim it at the slot's own next
             # position, which any real future decode/chunk overwrites before
-            # attending to it.
+            # attending to it. (A speculative round restores the bytes its
+            # draft wrote there and never verifies the parked rows.)
             for rid, s in self.kv.slot_of.items():
                 pos[s] = min(self.kv.len_of.get(rid, 0), self.capacity - 1)
             for rid in decode_rids:
@@ -292,12 +367,18 @@ class EngineInstance:
                 tokens[s, 0] = self.last_token[rid]
                 pos[s] = self.kv.len_of[rid]
                 active[s] = True
-            dec_args = (self._dev(tokens), pos) \
-                + self._slot_samp_arrays(decode_rids)
-            if self.kv.needs_active_mask:
-                # recurrent state has no harmless dummy-write: parked
-                # slots are masked out inside the fused step instead
-                dec_args += (active,)
+            samp = self._slot_samp_arrays(decode_rids)
+            if use_spec:
+                spec = fs.spec_decode(
+                    self.cfg, self.draft_layers, self.speculate,
+                    self.params, *self.kv.slabs(), self._dev(tokens), pos,
+                    *samp, active)
+            else:
+                dec_args = (self._dev(tokens), pos) + samp
+                if self.kv.needs_active_mask:
+                    # recurrent state has no harmless dummy-write: parked
+                    # slots are masked out inside the fused step instead
+                    dec_args += (active,)
         groups: List[Tuple[List[ChunkWork], Any]] = []
         for gi, (Sq, group) in enumerate(self._group_chunks(chunks)):
             n = len(group)
@@ -332,19 +413,31 @@ class EngineInstance:
             out = self._ops.decode_only(
                 self.cfg, self.params, *self.kv.slabs(), *dec_args)
             groups.append(([], out))
-        return PendingStep(list(decode_rids), groups,
+        return PendingStep(list(decode_rids), groups, spec=spec,
                            decode_in_group0=dec_args is not None)
 
     def finalize_step(self, pending) -> Tuple[Dict[int, Any],
                                               List[Tuple[int, Optional[int]]]]:
         """Fetch the step's stacked token tensor (the one device-to-host
-        copy) and advance host bookkeeping. Returns (decode rid->token, and
-        per-chunk (rid, o_1|None) in dispatch order)."""
+        copy) and advance host bookkeeping. Returns (decode rid->token — or
+        rid->[tokens] for a speculative round — and per-chunk (rid,
+        o_1|None) in dispatch order)."""
         if pending is None:
             return {}, []
+        if isinstance(pending, _EagerStep):
+            return pending.decode_out, pending.chunk_out
         decode_out: Dict[int, Any] = {}
         chunk_out: List[Tuple[int, Optional[int]]] = []
-        arrays = pending.fetch()
+        spec_np, arrays = pending.fetch()
+        if spec_np is not None:
+            for rid in pending.decode_rids:
+                s = self.kv.slot_of[rid]
+                a = int(spec_np[s, 0])
+                toks = [int(x) for x in spec_np[s, 1:a + 2]]
+                self.kv.advance(rid, len(toks))
+                self.last_token[rid] = toks[-1]
+                self.generated[rid].extend(toks)
+                decode_out[rid] = toks
         for gi, ((group, _), a) in enumerate(zip(pending.groups, arrays)):
             base = 0
             if gi == 0 and pending.decode_in_group0 and pending.decode_rids:
@@ -381,6 +474,79 @@ class EngineInstance:
             by_w.setdefault(w, []).append(cw)
         return [(w, g) for w, g in by_w.items()]
 
+    # -------------------------------------------------- legacy baseline
+    def _legacy_step(self, decode_rids: List[int],
+                     chunks: Sequence[ChunkWork]) -> _EagerStep:
+        decode_out = self._legacy_decode(decode_rids) if decode_rids else {}
+        chunk_out = [(cw.rid, self._legacy_chunk(cw)) for cw in chunks]
+        return _EagerStep(decode_out, chunk_out)
+
+    def _legacy_decode(self, rids: List[int]) -> Dict[int, int]:
+        """Pre-fusion decode, kept as the bench baseline: the step runs on
+        a full copy of the KV slabs that is then copied back, and fetches
+        the sampled tokens once per iteration."""
+        B = self.kv.n_slots
+        tokens = np.zeros((B, 1), np.int32)
+        pos = np.zeros((B,), np.int32)
+        for rid, s in self.kv.slot_of.items():
+            pos[s] = min(self.kv.len_of.get(rid, 0), self.capacity - 1)
+        for rid in rids:
+            s = self.kv.slot_of[rid]
+            tokens[s, 0] = self.last_token[rid]
+            pos[s] = self.kv.len_of[rid]
+        x = dense.embed_tokens(self.cfg, self.params, self._dev(tokens))
+        logits, cache = dense.decode_step(
+            self.cfg, self.params, self.kv.as_model_cache(), x,
+            self._dev(pos))
+        self.kv.update_from_model_cache(cache)
+        arg = fs.sample_tokens(self.cfg, logits[:, 0],
+                               *self._slot_samp_arrays(rids),
+                               pos).cpu().numpy()
+        out: Dict[int, int] = {}
+        for rid in rids:
+            s = self.kv.slot_of[rid]
+            tok = int(arg[s])
+            self.kv.advance(rid)
+            self.last_token[rid] = tok
+            self.generated[rid].append(tok)
+            out[rid] = tok
+        return out
+
+    def _legacy_chunk(self, cw: ChunkWork) -> Optional[int]:
+        """Pre-fusion chunked prefill: the chunk runs on a copy of its
+        slot's cache that is then written back, with the per-chunk host
+        ``pos_map`` round trip (a writable numpy copy, pad positions set
+        to -1, written back)."""
+        rid, offset, ln = cw.rid, cw.offset, cw.length
+        s = self.kv.slot_of[rid]
+        ln_pad = min(_bucket32(ln, self.capacity), self.capacity - offset)
+        padded = np.zeros((ln_pad,), np.int32)
+        padded[:ln] = cw.tokens
+        x = dense.embed_tokens(self.cfg, self.params,
+                               self._dev(padded)[None])
+        sub = {"k": self.kv.k[:, s:s + 1].clone(),
+               "v": self.kv.v[:, s:s + 1].clone(),
+               "pos_map": self.kv.pos_map[s:s + 1].clone()}
+        logits, sub = dense.prefill_chunk(self.cfg, self.params, sub, x,
+                                          offset)
+        # write back; invalidate pad positions in the pos_map
+        pm = sub["pos_map"][0].cpu().numpy().copy()      # writable copy
+        pm[offset + ln: offset + ln_pad] = -1
+        self.kv.k[:, s] = sub["k"][:, 0]
+        self.kv.v[:, s] = sub["v"][:, 0]
+        self.kv.pos_map[s] = torch.from_numpy(pm).to(self.device)
+        self.kv.len_of[rid] = offset + ln
+        if offset + ln >= cw.total_len:
+            self.kv.len_of[rid] = cw.total_len
+            t, p, sd = self._samp_of(rid)
+            tok = self._sample_row(logits[0, ln - 1], t, p,
+                                   sd & 0x7FFFFFFF, rid & 0x7FFFFFFF,
+                                   offset + ln - 1)
+            self.last_token[rid] = tok
+            self.generated[rid] = [tok]
+            return tok
+        return None
+
     # --------------------------------------------------------- transfer
     def export_state(self, rid: int):
         """Family-agnostic migration export: (payload host tensors, context
@@ -406,6 +572,18 @@ class EngineInstance:
         self.last_token[rid] = last_token
         self.generated[rid] = list(generated)
         return True
+
+    def export_kv(self, rid: int):
+        """Dense-layout export kept for compatibility (tests, tools):
+        (k (L,S,Hk,D), v, length, last token, generated tokens)."""
+        k, v, L = self.kv.extract(rid)
+        return k, v, L, self.last_token[rid], self.generated[rid]
+
+    def import_kv(self, rid: int, k, v, L: int, last_token: int,
+                  generated: List[int], sampling=None) -> bool:
+        """Inverse of :meth:`export_kv`; False when no slot is free."""
+        return self.import_state(rid, [k, v], L, last_token, generated,
+                                 sampling=sampling)
 
     def drop(self, rid: int) -> None:
         if rid in self.kv.slot_of:

@@ -7,8 +7,10 @@ contiguous pages of the paged-attention pool.
 
 The slabs are allocated once and every slot operation (place / copy_prefix /
 release) and every fused step writes them **in place**, where the JAX
-package donated them to jitted functions. ``extract`` stacks k and v into
-one device tensor so a KV export costs a single device-to-host copy.
+package donated them to jitted functions; only the legacy step works on a
+full copy (``as_model_cache``), as the pre-fusion baseline did. ``extract``
+stacks k and v into one device tensor so a KV export costs a single
+device-to-host copy.
 """
 from __future__ import annotations
 
@@ -93,3 +95,22 @@ class SlotKVCache(StateSlotsBase):
     def place_state(self, rid: int, payload, length: int) -> None:
         k, v = payload
         self.place(rid, torch.as_tensor(k), torch.as_tensor(v), length)
+
+    def state_bytes(self, rid: int) -> int:
+        # O(L) in context: tokens x per-token KV bytes (k and v rows)
+        n_layers, _, _, hk, d = self.k.shape
+        return 2 * n_layers * hk * d * self.k.element_size() \
+            * self.len_of[rid]
+
+    # ------------------------------------- the legacy step's functional copy
+    def as_model_cache(self):
+        """A full copy of the slabs in the model's cache layout: the legacy
+        (pre-fusion) decode steps on it, then writes it back with
+        :meth:`update_from_model_cache`."""
+        return {"k": self.k.clone(), "v": self.v.clone(),
+                "pos_map": self.pos_map.clone()}
+
+    def update_from_model_cache(self, cache) -> None:
+        self.k.copy_(cache["k"])
+        self.v.copy_(cache["v"])
+        self.pos_map.copy_(cache["pos_map"])

@@ -13,6 +13,8 @@ for the recurrent ones); ``reference`` runs plain torch.
       --arch mamba2-370m --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
       --device cpu --trace azure_code --rate 2 --duration 10
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
+      --device cpu --speculate 4 --requests 6
 
 The flags are those of the JAX launcher. The cluster-scale simulator
 (``--mode sim``) is not ported yet. ``--list-traces`` / ``--list-policies``
@@ -327,9 +329,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "position), so replaying a trace with the same "
                          "seed reproduces every sampled stream bit-for-bit")
     ap.add_argument("--speculate", type=int, default=0,
-                    help="self-speculative decoding (0 disables); not "
-                         "ported to the PyTorch engine yet, so any other "
-                         "value stops with NotImplementedError")
+                    help="self-speculative decoding (DESIGN.md §12): draft "
+                         "k tokens per round with the truncated-layer "
+                         "model, verify in one full pass, emit the longest "
+                         "agreeing prefix + 1 — streams stay bit-identical "
+                         "to non-speculative decoding; 0 disables. Engine "
+                         "mode runs it in the fused step; sim mode models "
+                         "the round cost and acceptance analytically")
     ap.add_argument("--list-traces", action="store_true",
                     help="print the trace-preset table and exit")
     ap.add_argument("--list-policies", action="store_true",

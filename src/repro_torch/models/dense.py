@@ -193,5 +193,51 @@ def prefill_chunk(cfg: ModelConfig, params, cache, x, offset: int, *,
     return _final(cfg, params, x), cache
 
 
+def verify_rows(cfg: ModelConfig, params, cache, x, slots, offsets):
+    """The speculative verify: row ``j`` of x (n, Sq, d) holds the tokens at
+    absolute positions [offsets[j], offsets[j]+Sq) of cache slot
+    ``slots[j]`` (host int arrays, distinct slots, non-ring, positions
+    [0, offsets[j]) valid). Every op but attention runs once for all rows:
+    RoPE on the (n, Sq) positions, K/V and ``pos_map`` written per row by
+    advanced indexing, in place. Attention runs per row against its own
+    slot (the flash kernel takes one offset a launch). Returns logits
+    (n, Sq, V)."""
+    n, Sq, _ = x.shape
+    kc, vc, pos_map = cache["k"], cache["v"], cache["pos_map"]
+    dev = x.device
+    offs = [int(o) for o in offsets]
+    sl = [int(s) for s in slots]
+    if max(offs) + Sq > kc.shape[2]:
+        raise ValueError(f"verify rows overrun the cache capacity "
+                         f"{kc.shape[2]}")
+    positions = torch.as_tensor(offs, device=dev)[:, None] \
+        + torch.arange(Sq, device=dev)[None, :]            # (n, Sq)
+    rows = torch.as_tensor(sl, device=dev)[:, None]
+    pos_map[rows, positions] = positions.to(torch.int32)
+    cos, sin, rope_dim = cm.rope_for(cfg, positions)
+    use_k = _use_kernels(cfg)
+    if use_k:
+        from repro_torch.kernels.flash_prefill import flash_chunk_op
+    else:
+        mask = torch.cat([cm.chunk_mask(pos_map[s:s + 1], positions[j])
+                          for j, s in enumerate(sl)])
+    for i in range(cfg.n_layers):
+        lp = layer(params, i)
+        h = cm.apply_norm(cfg, lp, "ln1", x)
+        q, k, v = cm.attention_qkv(cfg, lp, h, cos, sin, rope_dim)
+        ck, cv = kc[i], vc[i]
+        ck[rows, positions] = k
+        cv[rows, positions] = v
+        if use_k:
+            o = torch.cat([flash_chunk_op(q[j:j + 1].contiguous(),
+                                          ck[s:s + 1], cv[s:s + 1], off)
+                           for j, (s, off) in enumerate(zip(sl, offs))])
+        else:
+            o = cm.sdpa(q, ck[rows[:, 0]], cv[rows[:, 0]], mask,
+                        cfg.logit_softcap)
+        x = _mlp_residual(cfg, lp, x + o.reshape(n, Sq, -1) @ lp["attn/wo"])
+    return _final(cfg, params, x)
+
+
 def embed_tokens(cfg: ModelConfig, params, tokens):
     return cm.embed(cfg, params, tokens)

@@ -6,7 +6,9 @@ sampled streams pinned in ``golden_streams_pr8.json`` — on both attention
 paths — and an ``ArrowEngineCluster`` run gives the JAX cluster's streams
 and migration log. Migration payloads checksum to the JAX package's CRC,
 and a JAX instance's exported KV continues decoding on a torch instance.
-Token ids are compared exactly.
+The dense container's ``state_bytes`` is the JAX value and the payload's
+size, and ``export_kv``/``import_kv`` continue a sampled stream and refuse
+softly on a full cache. Token ids are compared exactly.
 
 The JAX side runs in the non-partitionable threefry mode the golden pin was
 recorded under (set by a fixture and restored afterwards).
@@ -200,10 +202,52 @@ def test_entry_points_need_a_device_or_cpu(setup):
         EngineInstance(0, tcfg, tparams)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ArrowEngineCluster(tcfg, params=tparams)
-    with pytest.raises(NotImplementedError):
-        EngineInstance(0, tcfg, tparams, device="cpu", step_mode="legacy")
-    with pytest.raises(NotImplementedError):
-        EngineInstance(0, tcfg, tparams, device="cpu", speculate=2)
+
+
+def test_slot_kv_state_bytes_matches_jax(setup):
+    """``state_bytes`` of the dense container: 2 x layers x Hk x D x
+    itemsize x tokens, the JAX value, and the size of the payload that
+    ``export_state`` really moves."""
+    from repro.engine.kv_slots import SlotKVCache as JSlotKVCache
+    from repro_torch.engine.kv_slots import SlotKVCache
+    kv = SlotKVCache(2, 2, 64, 2, 8, device="cpu")
+    jkv = JSlotKVCache(2, 2, 64, 2, 8)
+    for c in (kv, jkv):
+        c.alloc(0)
+        c.len_of[0] = 40
+    assert kv.state_bytes(0) == 10240 == jkv.state_bytes(0)
+    _, _, tcfg, tparams = setup
+    inst = EngineInstance(0, tcfg, tparams, n_slots=2, capacity=64,
+                          device="cpu")
+    inst.run_prefill(3, golden_prompts(tcfg.vocab_size)[0])
+    payload, L, _, _ = inst.export_state(3)
+    assert inst.kv.state_bytes(3) == sum(p.nbytes for p in payload)
+
+
+def test_export_import_kv_round_trip(setup):
+    """``export_kv``/``import_kv`` (the dense-layout compatibility pair):
+    the sampling state rides along and the importer continues the sampled
+    stream token for token; a full slot cache refuses softly (False)."""
+    _, _, tcfg, tparams = setup
+    sp = SamplingParams(temperature=0.8, top_p=0.9, seed=21)
+    prompt = golden_prompts(tcfg.vocab_size)[0]
+    ref = instance_stream(EngineInstance(0, tcfg, tparams, n_slots=4,
+                                         capacity=128, device="cpu"),
+                          7, prompt, 9, sp=sp)
+    src = EngineInstance(1, tcfg, tparams, n_slots=4, capacity=128,
+                         device="cpu")
+    got = instance_stream(src, 7, prompt, 4, sp=sp)
+    k, v, L, last, gen = src.export_kv(7)
+    assert k.shape == (tcfg.n_layers, L, tcfg.n_kv_heads, tcfg.head_dim_)
+    dst = EngineInstance(2, tcfg, tparams, n_slots=1, capacity=128,
+                         device="cpu")
+    assert dst.import_kv(7, k, v, L, last, gen,
+                         sampling=(sp.temperature, sp.top_p, sp.seed))
+    dst.local.start_local_decode(7, L, 5)
+    for _ in range(5):
+        got.append(dst.run_decode_iteration([7])[7])
+    assert got == ref
+    assert dst.import_kv(8, k, v, L, last, gen) is False
 
 
 def test_launcher_serves_on_cpu(capsys):
@@ -223,6 +267,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import repro_torch.kernels, repro_torch.traces\n"
         "import repro_torch.models.ssm, repro_torch.models.hybrid\n"
         "import repro_torch.kernels.ssd_scan, repro_torch.kernels.rglru_scan\n"
+        "import repro_torch.bench.bench_engine_step\n"
+        "import repro_torch.bench.bench_speculative\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

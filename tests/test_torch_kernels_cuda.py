@@ -6,7 +6,10 @@ machine that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Shapes follow tests/test_kernels.py, plus the engine's main-path shapes at
-qwen3-1.7b, mamba2-370m and recurrentgemma-9b width. Tolerances: attention
+qwen3-1.7b, mamba2-370m and recurrentgemma-9b width, and the speculative
+verify's few query rows at unaligned offsets. Two engine tests hold the
+speculative and legacy step modes' streams to the fused sequential ones on
+the kernels, in float32. Tolerances: attention
 float32 at 2e-5 (other summation orders), bfloat16 at 2e-2 (one bf16
 rounding of the output); the scans those of tests/test_kernels.py, ssd_scan
 at 2e-4 (the chunked form against the sequential recurrence) and
@@ -394,3 +397,120 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     z = torch.zeros(1, 256, 1, 16, device=cuda)   # chunk 256: no tile
     with pytest.raises(ValueError):
         ssd_scan_op(z, z[..., 0], z, z, 256)
+
+
+# the speculative verify's shapes: k+1 = 2..9 query rows at offsets that are
+# no multiple of the 64-position kv tile, against a 1024-slot cache at
+# qwen3-1.7b's heads (the wgmma route's 32-position query tile holds them)
+VERIFY_SHAPES = [(sq, off) for sq in (2, 5, 9) for off in (37, 517, 1015)] \
+    + [(3, 0), (7, 63), (8, 64), (4, 1020)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,q_offset", VERIFY_SHAPES)
+def test_flash_few_rows_at_unaligned_offsets(cuda, Sq, q_offset, dtype):
+    """flash_chunk_op at the verify's few query rows matches its plain
+    version. Launched through the C entry point with q carved from a
+    buffer whose rows past Sq are NaN, and o carved from one whose rows
+    past Sq hold a sentinel: the rows that exist come out right and
+    finite, and no row past Sq is written."""
+    import math
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_prefill import ops as fops
+    H, Hk, D, C = 16, 8, 128, 1024
+    rng = np.random.default_rng(Sq * 1000 + q_offset)
+    q = rand(rng, (1, Sq, H, D), dtype)
+    k = rand(rng, (1, C, Hk, D), dtype)
+    v = rand(rng, (1, C, Hk, D), dtype)
+    want = f32(flash_chunk_op(q, k, v, q_offset))
+    np.testing.assert_allclose(
+        f32(flash_chunk_op(q.to(cuda), k.to(cuda), v.to(cuda), q_offset)),
+        want, **tol(dtype))
+    qbuf = torch.full((1, Sq + 64, H, D), float("nan"),
+                      dtype=DTYPES[dtype], device=cuda)
+    qbuf[:, :Sq] = q.to(cuda)
+    obuf = torch.full_like(qbuf, 7.0)
+    qv, ov = qbuf[:, :Sq], obuf[:, :Sq]
+    kd, vd = k.to(cuda), v.to(cuda)
+    pl = fops.plan(1, H, Hk, Sq, C, D, q_offset, None, DTYPES[dtype])
+    dev = kd.device                              # with its index
+    part = _build.scratch("flash_prefill", dev, pl.scratch).data_ptr() \
+        if pl.scratch else None
+    err = _build.fn(*fops.LAUNCH)(
+        qv.data_ptr(), kd.data_ptr(), vd.data_ptr(), ov.data_ptr(), part,
+        1, H, Hk, Sq, C, D, q_offset, 0, 1.0 / math.sqrt(D),
+        fops._DTYPE_CODE[DTYPES[dtype]], pl.qp, pl.n_split,
+        _build.stream(dev))
+    _build.check(err, "flash_prefill_launch")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(ov).all())
+    np.testing.assert_allclose(f32(ov), want, **tol(dtype))
+    assert bool((obuf[:, Sq:] == 7.0).all())
+
+
+def _f32_model(cuda):
+    """qwen3-1.7b's attention layout (16/8 heads of 128) at 4 narrow
+    layers, float32, seeded random weights on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.weights import init_params
+    cfg = get_config("qwen3-1.7b").replace(
+        n_layers=4, d_model=256, d_ff=512, vocab_size=2048,
+        dtype="float32", attn_impl="hopper")
+    return cfg, init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0), cuda)
+
+
+def _streams(cfg, params, cuda, **kw):
+    """4 requests (2 greedy, 2 sampled) on one instance, decoded together
+    through dispatch/finalize until each has 24 tokens."""
+    from repro_torch.core import SamplingParams
+    from repro_torch.engine import EngineInstance
+    inst = EngineInstance(0, cfg, params, n_slots=4, capacity=256,
+                          device=cuda, **kw)
+    rng = np.random.default_rng(5)
+    rids = list(range(4))
+    for rid in rids:
+        prompt = rng.integers(1, cfg.vocab_size, size=int(rng.integers(
+            20, 120))).astype(np.int32)
+        inst.set_sampling(rid, SamplingParams(0.8, 0.9, seed=3)
+                          if rid % 2 else None)
+        inst.run_prefill(rid, prompt)
+        inst.local.start_local_decode(rid, len(prompt), 23)
+    while any(len(inst.generated[r]) < 24 for r in rids):
+        live = [r for r in rids if len(inst.generated[r]) < 24]
+        inst.finalize_step(inst.dispatch_step(live, []))
+    return [inst.generated[r][:24] for r in rids]
+
+
+def test_speculative_streams_equal_sequential_f32(cuda):
+    """Self-speculative decoding on the kernels (draft on paged decode,
+    verify on flash at k+1 rows) emits the sequential stream id for id in
+    float32, TF32 off."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg, params = _f32_model(cuda)
+        seq = _streams(cfg, params, cuda)
+        reset_launch_counts()
+        spec = _streams(cfg, params, cuda, speculate=4, draft_layers=2)
+        counts = launch_counts()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert spec == seq
+    assert counts["flash_chunk_op"] > 0 and counts["paged_attention_op"] > 0
+
+
+def test_legacy_streams_equal_fused_f32(cuda):
+    """The legacy step on the kernels gives the fused step's streams id
+    for id in float32, TF32 off."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg, params = _f32_model(cuda)
+        fused = _streams(cfg, params, cuda)
+        legacy = _streams(cfg, params, cuda, step_mode="legacy")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert legacy == fused
