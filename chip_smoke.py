@@ -19,6 +19,19 @@ the verify on flash_prefill_dyn at k+1 rows) — each read the same way, with
 the number of its streams equal to the fused ones reported; and once more
 in float32 in all three modes, whose streams must be equal id for id.
 
+A last phase measures the constants of the simulator's cost model on the
+card, in this process after the engine paths (a bf16 GEMM at
+qwen3-1.7b's MLP shapes, a 1 GiB device copy, the migration payloads'
+device-to-host-to-device round trips, the device time of a full-width
+decode step), prints them beside the coded defaults and beside the round
+trips measured before any engine ran, and fails if a measured rate
+exceeds its coded peak by more than 5% or a constant leaves its band
+around the default. It holds the model's prefill and decode times against
+the engine's measured ones for the three paths (printed, no gate) and
+runs the port's ``Simulator`` on a dense ``spike`` for those paths and
+olmoe-1b-7b, twice per policy, asserting that the two runs report the
+same and that Arrow flips a pool (and the elastic policy scales up).
+
     python3 chip_smoke.py
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a) and the
@@ -728,6 +741,327 @@ def profile_round(cluster, cfg, tags):
                      "top": [[k[:80], ms, n] for k, ms, n in rows[:10]]}})
 
 
+# ----------------------------------------------------------------- sim
+
+
+PROFILE_LENGTHS = (16, 32, 64, 128, 256, 1024)
+# measured / coded bounds for the InstanceProfile defaults, which are the
+# medians of this phase's measurements on the H100 (PERF.md section 5):
+# the runs' spread around them (flop_eff, mem_eff within 2%; overhead
+# 0.91-1.26; link_bw 0.95-1.08; link_latency 0.88-1.78), widened
+DEFAULT_BANDS = {"flop_eff": (0.9, 1.1), "mem_eff": (0.9, 1.1),
+                 "overhead": (2 / 3, 1.5), "hbm_bytes": (1.0, 1.0),
+                 "link_bw": (2 / 3, 1.5), "link_latency": (0.5, 2.0)}
+# spike's rate scale per simulated preset (10 s of trace): the least of
+# x48, x96, x192, x256 at which the default profile's 4-card instances
+# flip a pool under arrow and scale up under arrow_elastic
+SIM_RATES = {"qwen3-1.7b": 96.0, "mamba2-370m": 256.0,
+             "recurrentgemma-9b": 48.0, "olmoe-1b-7b": 96.0}
+
+
+def engine_samples(cluster, cfg, params, fused):
+    """What the cost model is held against, from the engine on the card at
+    full width: profile_prefill samples (the engine's own TTFT profiling
+    pass, longer prompts added), the fused phase's TPOT with its decode
+    contexts (prompt + half the 32 outputs), the per-pass floor (the median
+    token interval of a lone 16-token request on the idle cluster, host
+    included) and, for the dense path, the device time of one decode step
+    at the fused phase's batch (torch.profiler)."""
+    from repro_torch.core import Request
+    prompts = sorted(h.req.input_len for h in fused.handles)
+    out = {"prefill": cluster.instances[0].profile_prefill(PROFILE_LENGTHS),
+           "ctx": [n + 16 for n in prompts],
+           "tpot_p50_s": fused.percentile("tpot", 0.5),
+           "tpot_p90_s": fused.percentile("tpot", 0.9)}
+    prompt = np.random.default_rng(13).integers(
+        1, cfg.vocab_size, size=16).astype(np.int32)
+    h = cluster.submit(Request(rid=999, arrival=0.0, input_len=16,
+                               output_len=33), prompt=prompt)
+    cluster.drain(timeout=600.0)
+    out["pass_floor_s"] = float(np.median(np.diff(h.req.token_times)))
+    if cfg.family == "dense":
+        out["decode_step_ms"] = decode_step_ms(cfg, params, out["ctx"])
+    log({"engine_samples": cfg.arch_id, **out})
+    return out
+
+
+def decode_step_ms(cfg, params, ctx):
+    """(device ms, call ms) of ``dense.decode_step`` on the kernels at batch
+    len(ctx) over a 1024-slot cache, each row at its context length."""
+    from repro_torch.models import dense
+    from repro_torch.weights import torch_dtype
+    dev = torch.device("cuda")
+    c = cfg.replace(attn_impl="hopper")
+    B, C = len(ctx), 1024
+    shape = (cfg.n_layers, B, C, cfg.n_kv_heads, cfg.head_dim_)
+    cache = {"k": torch.zeros(shape, dtype=torch_dtype(cfg.dtype),
+                              device=dev),
+             "pos_map": torch.full((B, C), -1, dtype=torch.int32,
+                                   device=dev)}
+    cache["v"] = torch.zeros_like(cache["k"])
+    x = dense.embed_tokens(c, params, torch.ones((B, 1), dtype=torch.int32,
+                                                 device=dev))
+    pos = torch.tensor(ctx, device=dev)
+    ms = time_ms(lambda: dense.decode_step(c, params, cache, x, pos), [()],
+                 20)
+    del cache
+    torch.cuda.empty_cache()
+    return ms
+
+
+def graph_ms(fn, n: int, calls: int, reps: int = 5) -> float:
+    """Median over ``reps`` replays of the CUDA-event time per call of
+    ``fn(i)``, with ``calls`` calls cycling i through ``n`` input copies
+    captured in one CUDA graph (after a warm-up on a side stream), so the
+    host's launch time (~25 us a call there) leaves no gap between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(n):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(i % n)
+    times = []
+    for r in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        if r:
+            times.append(start.elapsed_time(end) / calls)
+    del graph
+    return float(np.median(times))
+
+
+def copy_ms(dst, src, iters: int = 10, reps: int = 5) -> float:
+    """Median over ``reps`` windows of the CUDA-event time per eager
+    ``dst.copy_(src)`` over ``iters`` copies, after a warm-up window."""
+    times = []
+    for r in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            dst.copy_(src)
+        end.record()
+        torch.cuda.synchronize()
+        if r:
+            times.append(start.elapsed_time(end) / iters)
+    return float(np.median(times))
+
+
+def round_trip_s(slots, L: int, reps: int = 5) -> dict:
+    """One migration of an ``L``-token context between two slots of
+    ``slots``: ``extract_state`` (device to host, into host buffers it
+    allocates afresh) then ``place_state`` (host to device), as
+    export_state / import_state move it, synchronised. Medians over
+    ``reps`` trips after a warm-up trip of the round trip's seconds, of
+    each half's, and of the same device-to-host copy into host buffers
+    that stay resident across trips: the gap between the two device-to-host
+    times is what first touches of fresh pageable pages cost."""
+    slots.alloc(0)
+    slots.alloc(1)
+    slots.len_of[0] = L
+    payload, _ = slots.extract_state(0)
+    rows = [t.to("cuda") for t in payload]
+    resident = [torch.zeros_like(t) for t in payload]
+    trips = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload, n = slots.extract_state(0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        slots.place_state(1, payload, n)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for h, d in zip(resident, rows):
+            h.copy_(d)
+        torch.cuda.synchronize()
+        trips.append((t2 - t0, t1 - t0, t2 - t1, time.perf_counter() - t2))
+    slots.release(0)
+    slots.release(1)
+    med = np.median(np.array(trips[1:]), axis=0)
+    return {"bytes": sum(t.numel() * t.element_size() for t in payload),
+            "s": float(med[0]), "d2h_s": float(med[1]),
+            "h2d_s": float(med[2]), "d2h_resident_s": float(med[3])}
+
+
+def measure_link() -> dict:
+    """The migration link's constants: the payloads' round trips (qwen3
+    at 1, 117, 579 and 1024 tokens, mamba2 and recurrentgemma at one
+    context each); latency is the smallest payload's round trip, the rate
+    the least-squares slope of the others' times above it."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine.state_slots import make_state_slots
+    dev = torch.device("cuda")
+    trips = []
+    for arch, lengths in (("qwen3-1.7b", (1, 117, 579, 1024)),
+                          ("mamba2-370m", (600,)),
+                          ("recurrentgemma-9b", (600,))):
+        slots = make_state_slots(get_config(arch), 2, 1024, dev)
+        for L in lengths:
+            trips.append({"arch": arch, "tokens": L,
+                          **round_trip_s(slots, L)})
+        del slots
+        torch.cuda.empty_cache()
+    latency = trips[0]["s"]
+    link_bw = sum(r["bytes"] ** 2 for r in trips[1:]) / sum(
+        r["bytes"] * (r["s"] - latency) for r in trips[1:])
+    return {"round_trips": trips, "link_latency": latency,
+            "link_bw": link_bw}
+
+
+def measure_card():
+    """The cost model's per-card constants, measured: a bf16 GEMM at
+    qwen3-1.7b's MLP shapes (2048 -> 6144) at M = 256 (a prefill chunk)
+    and M = 8 (a decode batch), cycling through eight weight copies (201
+    MB, four times the L2) so each call reads its weights from device
+    memory, timed in CUDA graphs; and a 1 GiB device-to-device copy."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    K, N = 2048, 6144
+    ws = [torch.randn(K, N, generator=g, device=dev).to(torch.bfloat16)
+          for _ in range(8)]
+    gemm = {}
+    for M in (256, 8):
+        x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+        y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+        ms = graph_ms(lambda i: torch.matmul(x, ws[i], out=y), len(ws), 200)
+        gemm[M] = {"ms": ms, "flops_per_s": 2.0 * M * K * N / ms * 1e3,
+                   "bytes_per_s": 2.0 * (M * K + K * N + M * N) / ms * 1e3}
+    del ws
+    src = torch.empty(2**29, dtype=torch.bfloat16, device=dev).normal_(
+        generator=g)
+    dst = torch.empty_like(src)
+    # eager, as the engine issues its copies (a 0.7 ms copy leaves the
+    # host no gap to show; a CUDA graph's memcpy node runs on the copy
+    # engine, 0.88 ms)
+    ms = copy_ms(dst, src)
+    copy = {"bytes": 2 * src.numel() * 2, "ms": ms,
+            "bytes_per_s": 2 * src.numel() * 2 / ms * 1e3}
+    del src, dst
+    return {"gemm": gemm, "copy": copy,
+            "hbm_bytes": torch.cuda.get_device_properties(0).total_memory}
+
+
+def measure_profile(obs, smi: str, link_fresh: dict) -> dict:
+    """The cost model's constants measured on the card, in the engine's
+    process after its paths have served, logged beside the coded defaults
+    and beside ``link_fresh`` (the link measured before any engine ran);
+    fails if a measured rate exceeds its coded peak by more than 5%, or a
+    constant leaves its ``DEFAULT_BANDS`` band. Overhead (a) is the dense
+    decode step's device time beyond the model's rate terms at the
+    measured efficiencies."""
+    from repro_torch.configs import get_config
+    from repro_torch.sim import CostModel, InstanceProfile
+
+    m = {**measure_card(), **measure_link()}
+    coded = InstanceProfile()
+    flop_eff = m["gemm"][256]["flops_per_s"] / coded.peak_flops
+    mem_eff = m["copy"]["bytes_per_s"] / coded.hbm_bw
+    cfg = get_config("qwen3-1.7b")
+    o = obs["qwen3-1.7b"]
+    rates = InstanceProfile(chips=1, flop_eff=flop_eff, mem_eff=mem_eff,
+                            overhead=0.0)
+    roof_s = CostModel(cfg, rates).iteration_time([], o["ctx"])
+    overhead = o["decode_step_ms"][0] / 1e3 - roof_s
+    measured = {"flop_eff": flop_eff, "mem_eff": mem_eff,
+                "overhead": max(overhead, 0.0),
+                "hbm_bytes": m["hbm_bytes"], "link_bw": m["link_bw"],
+                "link_latency": m["link_latency"]}
+    log({"cost_model_constants": {
+        "card": smi, "measured": measured,
+        "coded": {k: getattr(coded, k) for k in measured},
+        "peaks": {"peak_flops": coded.peak_flops, "hbm_bw": coded.hbm_bw},
+        "gemm": m["gemm"], "copy": m["copy"],
+        "round_trips": m["round_trips"],
+        "link_before_engine": link_fresh,
+        "decode_step": {"ctx": o["ctx"], "device_ms": o["decode_step_ms"][0],
+                        "call_ms": o["decode_step_ms"][1],
+                        "roofline_ms": roof_s * 1e3,
+                        "overhead_a_ms": overhead * 1e3},
+        "pass_floor_b_ms": {a: v["pass_floor_s"] * 1e3
+                            for a, v in obs.items()}}})
+    over = {name: rate / peak for name, rate, peak in (
+        ("gemm_m256_flops", m["gemm"][256]["flops_per_s"], coded.peak_flops),
+        ("gemm_m8_bytes", m["gemm"][8]["bytes_per_s"], coded.hbm_bw),
+        ("copy_bytes", m["copy"]["bytes_per_s"], coded.hbm_bw))
+        if rate > 1.05 * peak}
+    if over:
+        raise AssertionError(f"measured rates exceed the coded peaks by "
+                             f"more than 5% (rate / peak): {over}")
+    off = {k: measured[k] / getattr(coded, k)
+           for k, (lo, hi) in DEFAULT_BANDS.items()
+           if not lo <= measured[k] / getattr(coded, k) <= hi}
+    if off:
+        raise AssertionError(f"measured constants outside their bands "
+                             f"around the coded defaults (measured / "
+                             f"coded): {off}")
+    return measured
+
+
+def sim_phase(obs, smi: str, link_fresh: dict):
+    """The cost model's constants measured on the card against the coded
+    defaults; the model's prefill and decode times against the engine's;
+    then the port's Simulator, twice per preset and policy."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import SLO, replay_trace
+    from repro_torch.sim import CostModel, InstanceProfile, Simulator
+    from repro_torch.traces import TRACE_PRESETS, load_trace
+
+    measure_profile(obs, smi, link_fresh)
+    for arch, o in obs.items():
+        cm = CostModel(get_config(arch), InstanceProfile(chips=1))
+        log({"model_vs_engine": arch, "profile": "InstanceProfile(chips=1)",
+             "prefill": [{"tokens": L, "predicted_s": cm.prefill_time(L),
+                          "measured_s": t,
+                          "ratio": t / cm.prefill_time(L)}
+                         for L, t in o["prefill"]],
+             "decode": {"batch": len(o["ctx"]),
+                        "predicted_s": cm.iteration_time([], o["ctx"]),
+                        "tpot_p50_s": o["tpot_p50_s"],
+                        "tpot_p90_s": o["tpot_p90_s"],
+                        "ratio_p50": o["tpot_p50_s"]
+                        / cm.iteration_time([], o["ctx"])},
+             "pass_floor_s": o["pass_floor_s"]})
+
+    p = TRACE_PRESETS["spike"]
+    for arch in (*obs, "olmoe-1b-7b"):
+        for policy in ("arrow", "arrow_elastic"):
+            runs = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                sim = Simulator(get_config(arch), n_instances=4, n_prefill=2,
+                                policy=policy,
+                                slo=SLO(p.slo_ttft, p.slo_tpot))
+                replay_trace(sim, load_trace("spike",
+                                             rate_scale=SIM_RATES[arch],
+                                             seed=0, duration=10.0))
+                rep = sim.drain()
+                runs.append((rep.summary(), sim.migration_log, rep.flips,
+                             rep.scaling.get("scale_ups", 0),
+                             time.perf_counter() - t0))
+                log(f"[sim {arch} spike x{SIM_RATES[arch]} {policy}] "
+                    f"{rep.summary()}")
+            log({"sim": arch, "policy": policy, "rate_scale": SIM_RATES[arch],
+                 "wall_s": [r[-1] for r in runs],
+                 "migrations": len(runs[0][1]), "flips": runs[0][2],
+                 "scale_ups": runs[0][3]})
+            if runs[0][:-1] != runs[1][:-1]:
+                raise AssertionError(f"sim {arch} {policy}: two runs of the "
+                                     f"same trace differ")
+            if runs[0][2] == 0 or (policy == "arrow_elastic"
+                                   and runs[0][3] == 0):
+                raise AssertionError(f"sim {arch} {policy}: no flip or no "
+                                     f"scale-up at x{SIM_RATES[arch]}")
+
+
 def paths():
     """(arch, the kernels its engine path must launch, the profiler tags of
     those kernels) for each path, in the order they run."""
@@ -769,9 +1103,11 @@ def main() -> int:
          "libs": {k: str(v.relative_to(ROOT)) if ROOT in v.parents
                   else str(v) for k, v in libs.items()}})
 
+    link_fresh = measure_link()
+    log({"link_before_engine": link_fresh})
     rows = check_kernels(get_config("qwen3-1.7b")) + check_scan_kernels()
     check_sampler()
-    counts = {}
+    counts, obs = {}, {}
     for arch, expect, tags in paths():
         cfg = get_config(arch)              # full width, bf16
         g = torch.Generator(device="cuda").manual_seed(0)
@@ -785,7 +1121,9 @@ def main() -> int:
             check_recurrent_model(cfg, params)
         cluster, c, streams = serve(cfg, params, expect)
         counts.update({w.__name__: c[w.__name__] for w in expect})
+        fused = cluster.report()
         profile_round(cluster, cfg, tags)
+        obs[arch] = engine_samples(cluster, cfg, params, fused)
         del cluster
         if cfg.family == "dense":
             # the kernels line counts every bf16 serve phase of the path
@@ -798,6 +1136,7 @@ def main() -> int:
         if cfg.family == "dense":
             check_stream_identity(cfg, expect)
 
+    sim_phase(obs, smi, link_fresh)
     log({"kernels": [
         {"name": r["name"], "route": r["route"], "source": r["source"],
          "replaces": r["replaces"], "launches": counts[r["wrapper"].__name__],

@@ -13,10 +13,9 @@ their plain versions), and each mode gets an untimed warm-up burst first.
 The content check (speculative streams equal the sequential ones) comes
 before the throughput claim.
 
-The JAX bench also prints a speedup modeled by the simulator's
-``SpeculationModel``. That line is left out here: the port has no simulator
-yet (``repro_torch.sim`` is a later slice), and the port imports nothing of
-the JAX package, so ``repro.sim`` is not an option.
+A modeled-speedup line from the simulator's ``SpeculationModel`` (the
+port's cost model, with the card's profile) rides along, as in the JAX
+bench, so the analytic model and the measured engine stay comparable.
 
   PYTHONPATH=src python -m repro_torch.bench.bench_speculative
   PYTHONPATH=src python -m repro_torch.bench.bench_speculative --smoke \\
@@ -32,6 +31,7 @@ import torch
 from repro_torch.bench.common import Timer, device_info, emit, save_json, sync
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import SLO, Request
+from repro_torch.sim import CostModel, SpeculationModel
 
 SPEEDUP_FLOOR = 1.3
 ACCEPT_FLOOR = 0.6
@@ -100,14 +100,20 @@ def main(argv=None) -> None:
         assert list(b.tokens) == list(s.tokens), \
             f"rid {b.rid}: speculative stream diverged"
 
+    mdl = SpeculationModel(k=K_DRAFT, accept=accept)
+    cm = CostModel(cfg)
+    ctx = [24 + out_len // 2] * n
+    modeled = (cm.iteration_time([], ctx) * mdl.expected_emitted
+               / cm.spec_iteration_time(ctx, mdl))
     name, power = device_info(dev)
     emit("speculative.baseline", 1e6 / base_tps, f"tok_s={base_tps:.1f}")
     emit("speculative.k4", 1e6 / spec_tps,
          f"tok_s={spec_tps:.1f} accept={accept:.2f} speedup={speedup:.2f} "
-         f"on {name} ({power})")
+         f"modeled={modeled:.2f} on {name} ({power})")
     save_json("speculative", {
         "baseline_tok_s": base_tps, "spec_tok_s": spec_tps,
-        "speedup": speedup, "acceptance": accept, "k": K_DRAFT,
+        "speedup": speedup, "acceptance": accept,
+        "modeled_speedup": modeled, "k": K_DRAFT,
         "speculation": rep.speculation, "device": name,
         "power_limit": power})
     assert accept >= ACCEPT_FLOOR, (

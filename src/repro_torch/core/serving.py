@@ -1,6 +1,6 @@
 """Unified online serving API: the ``ServingSystem`` protocol both the
-discrete-event :class:`repro.sim.Simulator` and the real-compute
-:class:`repro.engine.ArrowEngineCluster` implement.
+discrete-event :class:`repro_torch.sim.Simulator` and the real-compute
+:class:`repro_torch.engine.ArrowEngineCluster` implement.
 
 Semantics are open-loop and streaming (DESIGN.md §1):
 
@@ -291,8 +291,8 @@ class ServeReport:
 class ServingSystem(abc.ABC):
     """Online, streaming serving front-end over a pool of stateless instances.
 
-    Implementations: ``repro.sim.Simulator`` (VirtualClock) and
-    ``repro.engine.ArrowEngineCluster`` (WallClock).
+    Implementations: ``repro_torch.sim.Simulator`` (VirtualClock) and
+    ``repro_torch.engine.ArrowEngineCluster`` (WallClock).
     """
 
     clock: Clock

@@ -1,8 +1,11 @@
-"""Serving launcher of the PyTorch port: the real-compute Arrow cluster in
-engine mode, on the card by default (``--device cuda``) or on the CPU
-(``--device cpu``), at the architecture's smoke-sized config as the JAX
-launcher's engine mode serves it: dense archs, Mamba-2 (``--arch
-mamba2-370m``) and RecurrentGemma (``--arch recurrentgemma-9b``).
+"""Serving launcher of the PyTorch port: one ServingSystem front-end over
+both backends. Engine mode runs the real-compute Arrow cluster, on the card
+by default (``--device cuda``) or on the CPU (``--device cpu``), at the
+architecture's smoke-sized config as the JAX launcher's engine mode serves
+it: dense archs, Mamba-2 (``--arch mamba2-370m``) and RecurrentGemma
+(``--arch recurrentgemma-9b``). Sim mode runs the cluster-scale
+discrete-event simulator on the host for any preset at its full config,
+with the cost model's H100 profile.
 ``--attn-impl hopper`` routes the serving path through the hand-written
 Hopper kernels (attention for dense archs, ``ssd_scan`` / ``rglru_scan``
 for the recurrent ones); ``reference`` runs plain torch.
@@ -15,10 +18,13 @@ for the recurrent ones); ``reference`` runs plain torch.
       --device cpu --trace azure_code --rate 2 --duration 10
   PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
       --device cpu --speculate 4 --requests 6
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode sim \
+      --arch gemma-2b --trace azure_code --rate 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode sim --trace spike \
+      --policy arrow_elastic --instances 4 --min-instances 2 --max-instances 12
 
-The flags are those of the JAX launcher. The cluster-scale simulator
-(``--mode sim``) is not ported yet. ``--list-traces`` / ``--list-policies``
-print the available presets/policies and exit.
+The flags are those of the JAX launcher. ``--list-traces`` /
+``--list-policies`` print the available presets/policies and exit.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from repro_torch.configs import ARCH_IDS, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.autoscaler import AutoScalerConfig
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.policies import POLICIES
@@ -143,6 +149,33 @@ def run_engine(args) -> ServeReport:
                           label=f"serve-engine {args.policy}")
 
 
+def run_sim(args) -> ServeReport:
+    from repro_torch.sim import Simulator
+    from repro_torch.traces import TRACE_PRESETS, load_trace
+    cfg = get_config(args.arch)
+    trace_name = args.trace or "azure_code"
+    p = TRACE_PRESETS[trace_name]
+    trace = load_trace(trace_name, rate_scale=args.rate, seed=0,
+                       duration=args.duration)
+    sim = Simulator(cfg, n_instances=args.instances,
+                    n_prefill=max(args.instances // 2, 1),
+                    policy=args.policy, slo=SLO(p.slo_ttft, p.slo_tpot),
+                    seed=args.seed, speculate=args.speculate,
+                    autoscaler_cfg=autoscaler_cfg(args),
+                    prefix_cache=args.prefix_cache == "on",
+                    fault_plan=fault_plan(args),
+                    tenants=tenant_registry(args),
+                    admission=args.admission == "on",
+                    deflection=deflection_cfg(args),
+                    health=health_cfg(args))
+    trace = apply_sampling(trace, args)
+    # no timeout: --timeout is wall-clock; the sim's drain limit is virtual
+    # time and must cover the whole trace
+    return run_and_report(sim, trace, tier=args.tier,
+                          label=f"serve-sim {args.arch} {trace_name} "
+                                f"x{args.rate} {args.policy}")
+
+
 def fault_plan(args) -> Optional[FaultPlan]:
     """Parse ``--fault-plan`` (DESIGN.md §8); None = no injection."""
     if args.fault_plan is None:
@@ -219,7 +252,7 @@ def build_parser() -> argparse.ArgumentParser:
                     default="qwen3-1.7b",
                     help="architecture preset (--model-arch is an alias); "
                          "the PyTorch engine serves the dense, ssm and "
-                         "hybrid families")
+                         "hybrid families; sim mode models any preset")
     ap.add_argument("--instances", type=int, default=2)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--gap", type=float, default=0.05)
@@ -227,8 +260,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tpot", type=float, default=2.0)
     ap.add_argument("--timeout", type=float, default=300.0)
     ap.add_argument("--trace", default=None,
-                    help="replay a repro_torch.traces preset; the "
-                         "default is synthetic requests")
+                    help="replay a repro_torch.traces preset (both "
+                         "modes); engine default is synthetic requests, "
+                         "sim default azure_code")
     ap.add_argument("--rate", type=float, default=8.0)
     ap.add_argument("--duration", type=float, default=120.0)
     ap.add_argument("--policy", default="arrow", choices=sorted(POLICIES))
@@ -251,10 +285,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "'reference' = plain-torch sdpa; 'hopper' = the "
                          "hand-written flash_prefill/paged_attention CUDA "
                          "kernels (their plain-torch versions with "
-                         "--device cpu)")
+                         "--device cpu); sim mode ignores this flag")
     ap.add_argument("--device", default="cuda",
                     help="torch device the engine runs on (default cuda; "
-                         "pass cpu to run without a card)")
+                         "pass cpu to run without a card); sim mode runs "
+                         "on the host and ignores it")
     ap.add_argument("--prefix-cache", choices=("on", "off"), default="off",
                     help="prefix-aware KV reuse (DESIGN.md §7): retain "
                          "finished contexts and prefill only the uncached "
@@ -349,10 +384,12 @@ def main(argv=None) -> None:
         return list_traces()
     if args.list_policies:
         return list_policies()
-    if args.mode == "sim":
-        raise SystemExit("--mode sim: the cluster-scale simulator is not "
-                         "ported to the PyTorch package yet (a later slice)")
-    run_engine(args)
+    if args.mode == "engine":
+        run_engine(args)
+    else:
+        if args.trace is None:
+            args.trace = "azure_code"
+        run_sim(args)
 
 
 if __name__ == "__main__":
