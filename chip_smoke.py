@@ -34,6 +34,17 @@ same and that Arrow flips a pool (and the elastic policy scales up).
 
     python3 chip_smoke.py
 
+Then the model zoo's other families run through ``build_model`` at full
+published width (bf16, seeded random weights): qwen2-vl-2b (M-RoPE; on the
+kernels, counted, held to the reference attention and to teacher forcing,
+and both attention kernels held at its G = 6 shapes), olmoe-1b-7b,
+whisper-medium and dbrx-132b (2 of its 40 layers: its weights do not fit
+one card), each through loss, a prefill and 8 decode steps; ``moe_ffn`` at
+olmoe and dbrx width is held on the card to the CPU in float32. Last, the
+trainer (``repro_torch.launch.train``) takes 20 full-width qwen3-1.7b
+steps, whose loss must fall and whose checkpoint must read back bit for
+bit, and 3 steps of olmoe-1b-7b at 2 layers with finite gradients.
+
 Needs one CUDA device (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc. TF32 is switched off for float32 matmuls and
 convolutions, so float32 comparisons are full precision. Exits non-zero on
@@ -1062,6 +1073,392 @@ def sim_phase(obs, smi: str, link_fresh: dict):
                                      f"scale-up at x{SIM_RATES[arch]}")
 
 
+# ------------------------------------------------------------ zoo, train
+
+
+# the model zoo's other families at full published width; dbrx-132b at 2
+# of its 40 layers (264 GB of bf16 weights do not fit one 80 GB card)
+ZOO = (("qwen2-vl-2b", None), ("olmoe-1b-7b", None),
+       ("whisper-medium", None), ("dbrx-132b", 2))
+ZOO_B, ZOO_STEPS = 2, 8
+
+
+def zoo_inputs(cfg, params, S: int, dev):
+    """Tokens (B, S + 8), the prefill batch of the first S (the stub
+    frontends' embeddings as the trainer draws them; the VLM's from the
+    token table, so that its prefill and decode see the same inputs), and
+    the 8 decode batches of the rest."""
+    from repro_torch.launch.train import make_batch_for
+    from repro_torch.models import dense
+    rng = np.random.default_rng(21)
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, size=(ZOO_B, S + ZOO_STEPS)).astype(np.int32)
+    ).to(dev)
+    batch = make_batch_for(cfg, tokens[:, :S])
+    if cfg.family == "vlm":
+        batch["embeds"] = dense.embed_tokens(cfg, params, tokens[:, :S])
+    dec = []
+    for i in range(ZOO_STEPS):
+        pos = torch.full((ZOO_B,), S + i, dtype=torch.int32, device=dev)
+        d = {"token": tokens[:, S + i:S + i + 1], "pos": pos}
+        if cfg.family == "vlm":
+            d["positions"] = pos[:, None, None].expand(ZOO_B, 3, 1)
+        dec.append(d)
+    return tokens, batch, dec
+
+
+def synced_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def zoo_run(model, params, batch, dec, C: int):
+    """loss, prefill (capacity C) and the decode steps, each timed (host
+    clock around synchronised calls). Returns (loss, prefill logits,
+    decode logits (B, steps, V), prefill ms, decode ms per step)."""
+    loss = model.loss(params, batch)
+    logits, pre_ms = synced_ms(lambda: model.prefill(params, batch, C))
+    logits, cache = logits
+    outs, step_ms = [], []
+    for d in dec:
+        (lg, cache), ms = synced_ms(lambda: model.decode(params, cache, d))
+        outs.append(lg)
+        step_ms.append(ms)
+    del cache
+    return loss, logits, torch.cat(outs, dim=1), pre_ms, step_ms
+
+
+def check_zoo_outputs(cfg, loss, outs) -> None:
+    """Every output finite; the first loss that of random logits: for
+    logits ~ N(0, s2) over V classes the expected cross-entropy is about
+    ln V + s2 / 2 (s2 grows with d_model: 1.23 at dbrx-132b's 6144, since
+    the unembedding's 0.02-scale columns meet a unit-RMS hidden state), so
+    the loss must lie within 1 of ln V + var(prefill logits) / 2."""
+    for name, t in outs.items():
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{cfg.arch_id} {name}: non-finite output")
+    lnv = math.log(cfg.padded_vocab)
+    expect = lnv + 0.5 * float(outs["prefill"].float().var())
+    log({"zoo_loss": cfg.arch_id, "loss": float(loss), "ln_V": lnv,
+         "expected": expect})
+    if not (math.isfinite(float(loss)) and abs(float(loss) - expect) <= 1.0):
+        raise AssertionError(f"{cfg.arch_id}: first loss {float(loss)} is "
+                             f"not within 1 of {expect}")
+
+
+def vlm_path(cfg, params, batch, dec, tokens, C: int):
+    """qwen2-vl-2b on the kernels (counted: every launch count set to 0
+    just before, read just after) and on the reference attention: logits
+    held together (compare_logits, LOGIT_TOL), and teacher forcing: the
+    decode steps' logits against a full prefill over all S + 8 tokens at
+    the same positions. Returns the kernel run's outputs and counts."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model, dense
+    S = batch["embeds"].shape[1]
+    hop = build_model(cfg.replace(attn_impl="hopper"))
+    reset_launch_counts()
+    run = zoo_run(hop, params, batch, dec, C)
+    n = S + ZOO_STEPS
+    full, _ = hop.prefill(params, {
+        "embeds": dense.embed_tokens(cfg, params, tokens),
+        "positions": torch.arange(n, device=tokens.device)[None, None]
+        .expand(ZOO_B, 3, n)}, None)
+    counts = launch_counts()
+    ref = zoo_run(build_model(cfg), params, batch, dec, C)
+    compare_logits(cfg, ("forward_seq", "decode_step"),
+                   {"hopper": run[1:3], "reference": ref[1:3]})
+    compare_logits(cfg, ("teacher_forcing",),
+                   {"hopper": (run[2],), "reference": (full[:, S:],)})
+    log({"zoo_launches": cfg.arch_id, **counts})
+    for w in ("flash_seq_op", "paged_attention_op"):
+        if counts[w] == 0:
+            raise AssertionError(f"{w} never launched on the "
+                                 f"{cfg.arch_id} path")
+    return run, counts
+
+
+def check_vlm_kernels(cfg, S: int, C: int, lengths) -> None:
+    """Both attention kernels at qwen2-vl-2b's shapes (G = 6) against their
+    plain versions, bf16, BF16_TOL: flash over the zoo's prefill, paged
+    decode over its cache at its last decode lengths. Logged beside the
+    kernels line's qwen3-1.7b rows (not launches of the main path)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_seq_op, paged_attention_op
+    from repro_torch.kernels.flash_prefill import flash_prefill_ref
+    from repro_torch.kernels.paged_attention import paged_attention_ref
+    from repro_torch.kernels.paged_attention.ops import plan as paged_plan
+    dev = torch.device("cuda")
+    H, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def bhsd(t):
+        return t.transpose(1, 2).contiguous()
+
+    def sdpa(q, k, v, mask=None, causal=False):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              is_causal=causal,
+                                              enable_gqa=True)
+
+    B = ZOO_B
+    q, k, v = rnd(B, S, H, D), rnd(B, S, Hk, D), rnd(B, S, Hk, D)
+    got = flash_seq_op(q, k, v)
+    want = flash_prefill_ref(bhsd(q), bhsd(k), bhsd(v)).transpose(1, 2)
+    sets = copies([q, k, v])
+    lib = [tuple(bhsd(t) for t in s) for s in sets]
+    pairs = B * S * (S + 1) // 2
+    rows = [dict(name="flash_prefill", shape=f"q({B},{S},{H},{D}) "
+                 f"kv({B},{S},{Hk},{D}) bf16 causal",
+                 max_abs_err=max_err(got, want), ok=within(got, want),
+                 ms=time_ms(lambda a, b, c: flash_seq_op(a, b, c), sets, 50),
+                 plain_ms=time_ms(lambda a, b, c: flash_prefill_ref(a, b, c),
+                                  lib, 10),
+                 library_ms=time_ms(lambda a, b, c: sdpa(a, b, c,
+                                                         causal=True),
+                                    lib, 50),
+                 bound=bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                             4.0 * D * H * pairs))]
+    page = 128
+    MP = C // page
+    qd, kp, vp = rnd(B, H, D), rnd(B * MP, page, Hk, D), \
+        rnd(B * MP, page, Hk, D)
+    pt = (torch.arange(B, device=dev)[:, None] * MP
+          + torch.arange(MP, device=dev)[None, :]).to(torch.int32)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = paged_attention_op(qd, kp, vp, pt, ln)
+    want = paged_attention_ref(qd, kp, vp, pt, ln)
+    sets = copies([qd, kp, vp])
+    dmask = (torch.arange(C, device=dev)[None, :]
+             < ln[:, None].long())[:, None, None, :]
+    lib = [(a[:, :, None], b.view(B, C, Hk, D).transpose(1, 2).contiguous(),
+            c.view(B, C, Hk, D).transpose(1, 2).contiguous())
+           for a, b, c in sets]
+    live = sum(lengths)
+    rows.append(dict(
+        name="paged_attention", shape=f"q({B},{H},{D}) pages({B * MP},"
+        f"{page},{Hk},{D}) bf16, lengths {list(lengths)}",
+        plan=paged_plan(B, H, Hk, D, page, MP)._asdict(),
+        max_abs_err=max_err(got, want), ok=within(got, want),
+        ms=time_ms(lambda a, b, c: paged_attention_op(a, b, c, pt, ln),
+                   sets, 200),
+        plain_ms=time_ms(lambda a, b, c: paged_attention_ref(
+            a, b, c, pt, ln), sets, 50),
+        library_ms=time_ms(lambda a, b, c: sdpa(a, b, c, mask=dmask), lib,
+                           200),
+        bound=bound(2 * (2 * qd.numel() + 2 * live * Hk * D)
+                    + 4 * (pt.numel() + B), 4.0 * D * H * live)))
+    for r in rows:
+        b_ms, b_by = r.pop("bound")
+        log({"kernel_check_g6": r.pop("name"), **{
+            k: (v[0] if isinstance(v, tuple) else v) for k, v in r.items()},
+            "call_ms": r["ms"][1], "bound_ms": b_ms, "bound_by": b_by,
+            "tol": f"atol=rtol={BF16_TOL}", "library": "sdpa"})
+        if not r["ok"]:
+            raise AssertionError(f"{r['shape']}: kernel differs from its "
+                                 f"plain version by {r['max_abs_err']}")
+
+
+def check_moe_ffn(arch: str) -> None:
+    """One layer's moe_ffn at full width in float32 (TF32 off), B 2, S 256,
+    on the card against the same function on the CPU: the share of tokens
+    whose K experts agree >= 0.999, outputs on those tokens within 1e-4 of
+    max |ref|, aux within 1e-5."""
+    from repro_torch.models import moe
+    from repro_torch.weights import param_shapes
+    cfg = get_cfg(arch).replace(dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    p = {path[len("layers/moe/"):]: torch.randn(shape[1:], generator=g,
+                                                 device="cuda") * 0.02
+         for path, shape, _ in param_shapes(cfg)
+         if path.startswith("layers/moe/")}
+    x = torch.randn((2, 256, cfg.d_model), generator=g, device="cuda")
+    with torch.no_grad():
+        (y, aux), ms = synced_ms(lambda: moe.moe_ffn(cfg, p, x))
+        top_e = moe.route(cfg, p, x)[2].reshape(-1, cfg.moe.top_k)
+        p_cpu = {k: v.cpu() for k, v in p.items()}
+        y_ref, aux_ref = moe.moe_ffn(cfg, p_cpu, x.cpu())
+        top_ref = moe.route(cfg, p_cpu, x.cpu())[2].reshape(-1,
+                                                            cfg.moe.top_k)
+    same = (top_e.cpu() == top_ref).all(dim=-1)
+    share = float(same.float().mean())
+    scale = float(y_ref.abs().max())
+    err = float((y.cpu() - y_ref).reshape(-1, cfg.d_model)[same].abs().max())
+    aux_err = abs(float(aux) - float(aux_ref))
+    log({"moe_ffn_check": arch, "shape": [2, 256, cfg.d_model],
+         "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+         "capacity": moe.capacity(cfg, 512), "same_experts_share": share,
+         "max_abs_err": err, "max_abs_ref": scale, "tol": 1e-4 * scale,
+         "aux": float(aux), "aux_err": aux_err, "card_ms_first_call": ms})
+    if share < 0.999 or err > 1e-4 * scale or aux_err > 1e-5:
+        raise AssertionError(f"{arch} moe_ffn on the card differs from the "
+                             f"CPU: share {share}, err {err}, aux {aux_err}")
+    del p, p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def get_cfg(arch: str, layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else cfg.replace(n_layers=layers)
+
+
+def zoo_phase(smi: str) -> dict:
+    """build_model for the zoo's other families at full width (bf16 random
+    weights, seed 0): loss, prefill (B 2, S 512; whisper S 224 of its 448)
+    and 8 decode steps each, outputs finite and the first loss that of a
+    random model; qwen2-vl-2b on the kernels, held to the reference and to
+    teacher forcing, with both kernels held at its shapes; moe_ffn on the
+    card held to the CPU at olmoe and dbrx width. No teacher-forcing check
+    for MoE: at capacity_factor 1.25 a prefill may drop (token, expert)
+    pairs that a one-token decode step keeps, so the two differ by design.
+    Returns the qwen2-vl-2b path's launch counts."""
+    from repro_torch.models import build_model
+    from repro_torch.weights import init_params
+    dev = torch.device("cuda")
+    counts = {}
+    for arch, layers in ZOO:
+        cfg = get_cfg(arch, layers)
+        S = 224 if cfg.family == "encdec" else 512
+        C = 256 if cfg.family == "encdec" else 1024
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+        info = {"arch": arch, "layers": cfg.n_layers,
+                "params": sum(p.numel() for p in params.values()),
+                "param_bytes": nbytes(*params.values()), "B": ZOO_B, "S": S,
+                "capacity": C, "card": smi}
+        if layers is not None:
+            info["cut"] = (f"depth only: {layers} of "
+                           f"{get_cfg(arch).n_layers} layers (full width)")
+        with torch.no_grad():
+            tokens, batch, dec = zoo_inputs(cfg, params, S, dev)
+            if cfg.family == "vlm":
+                run, counts = vlm_path(cfg, params, batch, dec, tokens, C)
+            else:
+                run = zoo_run(build_model(cfg), params, batch, dec, C)
+        loss, logits, dec_logits, pre_ms, step_ms = run
+        check_zoo_outputs(cfg, loss, {"prefill": logits,
+                                      "decode": dec_logits})
+        log({"zoo": {**info, "loss": float(loss), "prefill_ms": pre_ms,
+                     "decode_step_ms": step_ms,
+                     "decode_step_ms_median": float(np.median(step_ms[1:]))}})
+        del params, run, logits, dec_logits, batch, dec
+        gc.collect()
+        torch.cuda.empty_cache()
+        if cfg.family == "vlm":
+            check_vlm_kernels(cfg, S, C, [S + ZOO_STEPS - 1, S + ZOO_STEPS])
+    for arch in ("olmoe-1b-7b", "dbrx-132b"):
+        check_moe_ffn(arch)
+    return counts
+
+
+def profile_train_step(cfg, params) -> None:
+    """One more step of the trainer's loop (batch 8 x 128: loss, backward,
+    AdamW from fresh moments) under torch.profiler: its wall time, the
+    device's busy time and the kernels that take it, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init, adamw_update
+    model = build_model(cfg)
+    dev = next(iter(params.values())).device
+    tokens = torch.randint(1, cfg.vocab_size, (8, 128), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(6))
+    opt = adamw_init(params)
+    for p in params.values():
+        p.requires_grad_(True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = model.loss(params, {"tokens": tokens})
+        loss.backward()
+        adamw_update({k: p.detach() for k, p in params.items()},
+                     {k: p.grad for k, p in params.items()}, opt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    log({"train_step_profile": {"arch": cfg.arch_id, "wall_ms": wall * 1e3,
+                                "device_busy_ms": busy,
+                                "idle_share": 1.0 - busy / (wall * 1e3),
+                                "top": [[k[:80], ms, n]
+                                        for k, ms, n in rows[:12]]}})
+
+
+def train_phase(smi: str) -> None:
+    """repro_torch.launch.train at full width: qwen3-1.7b, 20 steps of
+    batch 8 x 128 tokens (bf16, reference attention), every loss finite
+    and the mean of the last 5 below the first 5's (the trainer's own
+    "improved"); its checkpoint read back by the port's loader bit for
+    bit. Then 3 steps of olmoe-1b-7b at 2 of its 16 layers (full width):
+    finite losses, and one more backward whose gradients through the MoE
+    scatter and gather must all be finite."""
+    import tempfile
+
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.weights import load_jax_checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(Path(tmp) / "qwen3.msgpack")
+        t0 = time.perf_counter()
+        out = train.main(["--arch", "qwen3-1.7b", "--steps", "20", "--batch",
+                          "8", "--seq", "128", "--log-every", "5",
+                          "--device", "cuda", "--ckpt", ck])
+        wall = time.perf_counter() - t0
+        losses = out["losses"]
+        cfg = get_cfg("qwen3-1.7b")
+        back = load_jax_checkpoint(ck, cfg, "cpu")
+    same = all(torch.equal(back[k].view(torch.int16),
+                           v.cpu().view(torch.int16))
+               for k, v in out["params"].items())
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log({"train": {"arch": "qwen3-1.7b", "steps": 20, "batch": 8, "seq": 128,
+                   "losses": losses, "first5": first, "last5": last,
+                   "tok_per_s": out["tok_per_s"], "wall_s": wall,
+                   "checkpoint_bit_exact": same, "card": smi}})
+    if not (all(math.isfinite(x) for x in losses) and last < first):
+        raise AssertionError(f"qwen3-1.7b training: losses {losses}")
+    if not same:
+        raise AssertionError("the trainer's checkpoint did not read back "
+                             "bit for bit")
+    del back
+    profile_train_step(cfg, out["params"])
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_cfg("olmoe-1b-7b", 2)
+    out = train.main(["--arch", "olmoe-1b-7b", "--steps", "3", "--batch", "8",
+                      "--seq", "128", "--log-every", "1", "--device", "cuda"],
+                     cfg_override=cfg)
+    params = out["params"]
+    for p in params.values():
+        p.requires_grad_(True)
+    tokens = torch.randint(1, cfg.vocab_size, (8, 128), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(5))
+    build_model(cfg).loss(params, {"tokens": tokens}).backward()
+    bad = [k for k, p in params.items() if p.grad is None
+           or not torch.isfinite(p.grad.float()).all()]
+    log({"train": {"arch": "olmoe-1b-7b", "layers": 2, "losses": out["losses"],
+                   "tok_per_s": out["tok_per_s"], "grads_finite": not bad,
+                   "card": smi}})
+    if bad or not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"olmoe-1b-7b training: losses "
+                             f"{out['losses']}, bad gradients {bad}")
+    del out, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def paths():
     """(arch, the kernels its engine path must launch, the profiler tags of
     those kernels) for each path, in the order they run."""
@@ -1137,6 +1534,10 @@ def main() -> int:
             check_stream_identity(cfg, expect)
 
     sim_phase(obs, smi, link_fresh)
+    zoo_counts = zoo_phase(smi)
+    for w in ("flash_seq_op", "paged_attention_op"):
+        counts[w] += zoo_counts[w]
+    train_phase(smi)
     log({"kernels": [
         {"name": r["name"], "route": r["route"], "source": r["source"],
          "replaces": r["replaces"], "launches": counts[r["wrapper"].__name__],

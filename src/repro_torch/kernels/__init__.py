@@ -13,6 +13,10 @@ allocation, launch counting; plain torch on CPU tensors) and ``ref.py``
                     (ssm family)
   rglru_scan      — the RG-LRU recurrence of every prefill chunk (hybrid
                     family)
+
+The kernels have no backward: on CUDA inputs that require grad a wrapper
+raises (``_build.refuse_grad``) rather than return an output cut off from
+autograd. The plain versions on the CPU are differentiable.
 """
 from repro_torch.kernels.flash_prefill import (flash_chunk_op,  # noqa: F401
                                                flash_seq_op)

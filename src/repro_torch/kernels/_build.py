@@ -102,6 +102,18 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """The kernels have no backward: raise where autograd would want one,
+    rather than hand back an output detached from its inputs (whose
+    gradients would then be silently zero). Training runs the reference
+    attention (``attn_impl="reference"``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the kernel has no backward; an input "
+                           "requires grad (train with "
+                           "attn_impl='reference', or call under "
+                           "torch.no_grad())")
+
+
 def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launch."""
     if err != 0:

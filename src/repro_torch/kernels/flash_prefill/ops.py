@@ -178,6 +178,7 @@ def flash_seq_op(q, k, v, *, window: Optional[int] = None):
     _check(q, k, v, window)
     q_offset = k.shape[1] - q.shape[1]
     if q.is_cuda:
+        _build.refuse_grad("flash_seq_op", q, k, v)
         flash_seq_op.launches += 1
         return _flash_cuda(q, k, v, q_offset, window)
     return _flash_plain(q, k, v, q_offset, window)
@@ -191,6 +192,7 @@ def flash_chunk_op(q, k, v, q_offset: int, *, window: Optional[int] = None):
     no offset ever needs a new build. Returns (B,Sq,H,D)."""
     _check(q, k, v, window)
     if q.is_cuda:
+        _build.refuse_grad("flash_chunk_op", q, k, v)
         flash_chunk_op.launches += 1
         return _flash_cuda(q, k, v, q_offset, window)
     return _flash_plain(q, k, v, q_offset, window)

@@ -144,6 +144,7 @@ def paged_attention_op(q, k_pages, v_pages, page_table, lengths):
     pages ``page_table[b]`` lists. Returns (B,H,D) in q's dtype."""
     _check(q, k_pages, v_pages, page_table, lengths)
     if q.is_cuda:
+        _build.refuse_grad("paged_attention_op", q, k_pages, v_pages)
         paged_attention_op.launches += 1
         return _paged_cuda(q, k_pages, v_pages, page_table, lengths)
     if q.device.type != "cpu":

@@ -156,6 +156,8 @@ def rglru_scan_op(log_a, gated, h0=None):
     (B,W) or zeros. Returns (h (B,S,W), h_final (B,W)), float32."""
     _check(log_a, gated, h0)
     if log_a.is_cuda:
+        _build.refuse_grad("rglru_scan_op", log_a, gated,
+                           *([] if h0 is None else [h0]))
         rglru_scan_op.launches += 1
         return _rglru_cuda(log_a, gated, h0)
     if log_a.device.type != "cpu":

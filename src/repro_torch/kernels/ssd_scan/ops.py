@@ -116,6 +116,8 @@ def ssd_scan_op(x, la, Bm, Cm, chunk: int, *, h0=None):
     Returns (y (B,S,H,P), h_final (B,H,P,N)), float32."""
     _check(x, la, Bm, Cm, chunk, h0)
     if x.is_cuda:
+        _build.refuse_grad("ssd_scan_op", x, la, Bm, Cm,
+                           *([] if h0 is None else [h0]))
         ssd_scan_op.launches += 1
         return _ssd_cuda(x, la, Bm, Cm, chunk, h0)
     if x.device.type != "cpu":

@@ -1,6 +1,7 @@
-"""Shared building blocks of the model families, in PyTorch: norms, RoPE,
-the reference GQA attention, masks, the attention projections, MLPs and the
-(un)embedding.
+"""Shared building blocks of the model families, in PyTorch: norms, RoPE
+(standard, partial and M-RoPE), sinusoidal positions, the reference GQA
+attention, masks, the attention projections, MLPs, the (un)embedding and
+the language-model loss.
 
 Every function is a plain function on tensors. Parameters are a flat dict
 keyed by the JAX pytree's ``a/b/c`` paths (see :mod:`repro_torch.weights`);
@@ -15,6 +16,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -69,14 +71,34 @@ def apply_rope(x, cos, sin, rope_dim: int):
     return torch.cat([r1.to(x.dtype), r2.to(x.dtype), xp], dim=-1)
 
 
-def rope_for(cfg: ModelConfig, positions):
+def mrope_angles(positions, rope_dim: int, theta: float, sections):
+    """qwen2-vl M-RoPE. positions (B, 3, S) (t/h/w); sections sum to
+    rope_dim//2. Frequency channel j takes its position from the section
+    it belongs to. -> cos, sin (B, S, rope_dim//2), float32."""
+    half = rope_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
+    dev = positions.device
+    inv = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                        device=dev) / half))
+    sec_ids = torch.repeat_interleave(
+        torch.arange(3, device=dev), torch.tensor(sections, device=dev))
+    pos = positions.float()[:, sec_ids, :]                  # (B, half, S)
+    ang = pos.movedim(1, -1) * inv                          # (B, S, half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rope_for(cfg: ModelConfig, positions, mrope_positions=None):
     """(cos, sin, rope_dim) ready for :func:`apply_rope`, or (None, None, 0).
-    Standard and partial RoPE; M-RoPE belongs to the VLM family."""
+    M-RoPE (the VLM family) takes its (B, 3, S) positions from
+    ``mrope_positions`` and ignores ``positions``."""
     hd = cfg.head_dim_
     if cfg.rope in ("none", "learned"):
         return None, None, 0
     if cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet (VLM family)")
+        cos, sin = mrope_angles(mrope_positions, hd, cfg.rope_theta,
+                                cfg.mrope_sections)
+        return cos[:, :, None, :], sin[:, :, None, :], hd
     rope_dim = hd if cfg.rope == "standard" else int(hd * cfg.rope_fraction)
     rope_dim -= rope_dim % 2
     cos, sin = rope_angles(positions, rope_dim, cfg.rope_theta)
@@ -84,6 +106,15 @@ def rope_for(cfg: ModelConfig, positions):
     if cos.dim() == 2:
         cos, sin = cos[None], sin[None]
     return cos[:, :, None, :], sin[:, :, None, :], rope_dim
+
+
+def sinusoidal_positions(n: int, d: int, device=None):
+    """(n, d) float32: sin over the first d/2 channels, cos over the rest
+    (the encoder's fixed positions)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ----------------------------------------------------------------- attention
@@ -143,16 +174,19 @@ def chunk_mask(kv_positions, q_positions, window: Optional[int] = None):
 # ----------------------------------------------------------- attention block
 
 
-def attention_qkv(cfg: ModelConfig, p, x, cos, sin, rope_dim):
-    """Project + rope. x (B,S,d) -> q (B,S,H,D), k,v (B,S,Hk,D)."""
+def attention_qkv(cfg: ModelConfig, p, x, cos, sin, rope_dim,
+                  prefix: str = "attn"):
+    """Project + rope. x (B,S,d) -> q (B,S,H,D), k,v (B,S,Hk,D); ``p``
+    holds ``<prefix>/wq`` ... (``self_attn``, ``cross_attn`` in the
+    encoder-decoder)."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
-    q = (x @ p["attn/wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = (x @ p["attn/wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ p["attn/wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    q = (x @ p[f"{prefix}/wq"]).reshape(B, S, cfg.n_heads, hd)
+    k = (x @ p[f"{prefix}/wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+    v = (x @ p[f"{prefix}/wv"]).reshape(B, S, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["attn/q_norm"])
-        k = rms_norm(k, p["attn/k_norm"])
+        q = rms_norm(q, p[f"{prefix}/q_norm"])
+        k = rms_norm(k, p[f"{prefix}/k_norm"])
     if rope_dim:
         q = apply_rope(q, cos, sin, rope_dim)
         k = apply_rope(k, cos, sin, rope_dim)
@@ -196,6 +230,14 @@ def causal_conv(full, w, b, S: int):
     return out + b
 
 
+def run_layer(remat: bool, fn, *args):
+    """``fn(*args)``; under ``remat`` its activations are recomputed in the
+    backward pass instead of kept (``jax.checkpoint`` of a layer body)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def write_rows(dst, src, rows=None) -> None:
     """dst[rows] = src[rows] along the batch axis (all rows when None): the
     in-place state write of a decode step, limited to its active rows."""
@@ -221,3 +263,16 @@ def unembed(cfg: ModelConfig, params, x):
     if cfg.tie_embeddings:
         return x @ params["tok/embed"].T
     return x @ params["tok/unembed"]
+
+
+def lm_loss(cfg: ModelConfig, logits, labels, ignore: int = -1):
+    """Mean cross-entropy over the padded vocab, float32; labels (B,S),
+    entries equal to ``ignore`` left out; logits (B,S,V)."""
+    logits = logits.float()
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp_min(0).long()[..., None])[..., 0]
+    ok = labels != ignore
+    return torch.sum((lse - gold) * ok) / torch.clamp_min(torch.sum(ok), 1)

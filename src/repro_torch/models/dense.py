@@ -13,7 +13,11 @@ need the old cache pass a clone.
 
 ``cfg.attn_impl == "hopper"`` routes attention through the hand-written
 kernels (``repro_torch.kernels``): flash prefill for ``forward_seq`` and
-``prefill_chunk``, paged decode for ``decode_step``.
+``prefill_chunk``, paged decode for ``decode_step``. The kernels have no
+backward: training runs the ``reference`` route.
+
+The VLM family (qwen2-vl) is this backbone with M-RoPE: its stub vision
+frontend hands ``forward_seq`` embeddings and (t, h, w) positions.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
-from repro_torch.weights import layer
+from repro_torch.weights import layer, layers
 
 
 def _use_kernels(cfg: ModelConfig) -> bool:
@@ -50,18 +54,19 @@ def _final(cfg, params, x):
 
 
 def forward_seq(cfg: ModelConfig, params, x, positions, *,
-                window: Optional[int] = None,
-                cache_capacity: Optional[int] = None):
-    """Full-sequence forward. x (B,S,d) embeddings, positions (S,).
-    Returns (logits (B,S,V_padded), cache | None); the cache is new."""
+                mrope_positions=None, window: Optional[int] = None,
+                cache_capacity: Optional[int] = None, remat: bool = False):
+    """Full-sequence forward. x (B,S,d) embeddings, positions (S,) (the
+    VLM's M-RoPE takes ``mrope_positions`` (B,3,S) instead). Returns
+    (logits (B,S,V_padded), cache | None); the cache is new. ``remat``
+    recomputes each layer's activations in the backward pass."""
     B, S, _ = x.shape
-    cos, sin, rope_dim = cm.rope_for(cfg, positions)
+    cos, sin, rope_dim = cm.rope_for(cfg, positions, mrope_positions)
     use_k = _use_kernels(cfg)
     mask = None if use_k else cm.causal_mask(S, S, window=window,
                                              device=x.device)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = layer(params, i)
+
+    def body(x, lp):
         h = cm.apply_norm(cfg, lp, "ln1", x)
         q, k, v = cm.attention_qkv(cfg, lp, h, cos, sin, rope_dim)
         if use_k:
@@ -69,43 +74,53 @@ def forward_seq(cfg: ModelConfig, params, x, positions, *,
             o = flash_seq_op(q, k, v, window=window).reshape(B, S, -1)
         else:
             o = cm.sdpa(q, k, v, mask, cfg.logit_softcap)
-        x = _mlp_residual(cfg, lp, x + o @ lp["attn/wo"])
+        return _mlp_residual(cfg, lp, x + o @ lp["attn/wo"]), k, v
+
+    ks, vs = [], []
+    for lp in layers(params):
+        x, k, v = cm.run_layer(remat, body, x, lp)
         ks.append(k)
         vs.append(v)
     logits = _final(cfg, params, x)
-
     cache = None
     if cache_capacity is not None:
-        ks, vs = torch.stack(ks), torch.stack(vs)        # (L,B,S,Hk,D)
-        C = cache_capacity
-        dev = x.device
-        if C >= S:
-            shape = ks.shape[:2] + (C,) + ks.shape[3:]
-            kc = torch.zeros(shape, dtype=ks.dtype, device=dev)
-            vc = torch.zeros_like(kc)
-            kc[:, :, :S] = ks
-            vc[:, :, :S] = vs
-            idx = torch.arange(C, device=dev)
-            pos_map = torch.where(idx < S, idx, -1)
-        else:
-            # keep the last C positions, placed at their ring slots
-            keep_pos = torch.arange(S - C, S, device=dev)
-            slots = keep_pos % C
-            kc = torch.zeros_like(ks[:, :, S - C:])
-            vc = torch.zeros_like(kc)
-            kc[:, :, slots] = ks[:, :, S - C:]
-            vc[:, :, slots] = vs[:, :, S - C:]
-            pos_map = torch.zeros((C,), dtype=torch.long, device=dev)
-            pos_map[slots] = keep_pos
-        pos_map = pos_map.to(torch.int32)[None].expand(B, C).contiguous()
-        cache = {"k": kc, "v": vc, "pos_map": pos_map}
+        cache = seq_cache(torch.stack(ks), torch.stack(vs), cache_capacity)
     return logits, cache
 
 
+def seq_cache(ks, vs, C: int):
+    """The decode cache of a full-sequence pass: K/V (L,B,S,Hk,D) of
+    positions [0, S) placed in a new cache of capacity ``C``; with C < S
+    the last C positions at their ring slots (slot = pos % C)."""
+    B, S = ks.shape[1], ks.shape[2]
+    dev = ks.device
+    if C >= S:
+        shape = ks.shape[:2] + (C,) + ks.shape[3:]
+        kc = torch.zeros(shape, dtype=ks.dtype, device=dev)
+        vc = torch.zeros_like(kc)
+        kc[:, :, :S] = ks
+        vc[:, :, :S] = vs
+        idx = torch.arange(C, device=dev)
+        pos_map = torch.where(idx < S, idx, -1)
+    else:
+        # keep the last C positions, placed at their ring slots
+        keep_pos = torch.arange(S - C, S, device=dev)
+        slots = keep_pos % C
+        kc = torch.zeros_like(ks[:, :, S - C:])
+        vc = torch.zeros_like(kc)
+        kc[:, :, slots] = ks[:, :, S - C:]
+        vc[:, :, slots] = vs[:, :, S - C:]
+        pos_map = torch.zeros((C,), dtype=torch.long, device=dev)
+        pos_map[slots] = keep_pos
+    pos_map = pos_map.to(torch.int32)[None].expand(B, C).contiguous()
+    return {"k": kc, "v": vc, "pos_map": pos_map}
+
+
 def decode_step(cfg: ModelConfig, params, cache, x, pos, *,
-                window: Optional[int] = None):
+                mrope_positions=None, window: Optional[int] = None):
     """x (B,1,d) new-token embeddings; pos (B,) absolute positions (a
-    device tensor). Writes each row's K/V at slot ``pos % C`` and its
+    device tensor; the VLM's M-RoPE takes ``mrope_positions`` (B,3,1)).
+    Writes each row's K/V at slot ``pos % C`` and its
     position into ``pos_map`` in place; returns (logits (B,1,V), cache).
 
     With ``cfg.attn_impl == "hopper"`` attention runs the paged decode
@@ -120,7 +135,7 @@ def decode_step(cfg: ModelConfig, params, cache, x, pos, *,
     slot = pos % C
     bidx = torch.arange(B, device=x.device)
     pos_map[bidx, slot] = pos.to(torch.int32)
-    cos, sin, rope_dim = cm.rope_for(cfg, pos[:, None])
+    cos, sin, rope_dim = cm.rope_for(cfg, pos[:, None], mrope_positions)
     use_k = _use_kernels(cfg)
     if use_k:
         if window is not None:
@@ -154,12 +169,13 @@ def decode_step(cfg: ModelConfig, params, cache, x, pos, *,
 
 
 def prefill_chunk(cfg: ModelConfig, params, cache, x, offset: int, *,
-                  window: Optional[int] = None):
+                  mrope_positions=None, window: Optional[int] = None):
     """Chunked prefill: run a chunk x (B,Sq,d) whose tokens sit at absolute
     positions [offset, offset+Sq) against an existing cache (same layout as
     decode; non-ring, offset + Sq <= C). ``offset`` is a host int shared by
-    the batch rows. Writes the chunk's K/V and positions in place; returns
-    (logits (B,Sq,V), cache).
+    the batch rows (the VLM's M-RoPE takes ``mrope_positions`` (B,3,Sq)).
+    Writes the chunk's K/V and positions in place; returns (logits
+    (B,Sq,V), cache).
 
     With ``cfg.attn_impl == "hopper"`` attention runs the flash kernel
     against the whole cache with positional causal masking; positions
@@ -173,7 +189,7 @@ def prefill_chunk(cfg: ModelConfig, params, cache, x, offset: int, *,
                          f"cache capacity {kc.shape[2]}")
     positions = offset + torch.arange(Sq, device=x.device)
     pos_map[:, offset:offset + Sq] = positions.to(torch.int32)
-    cos, sin, rope_dim = cm.rope_for(cfg, positions)
+    cos, sin, rope_dim = cm.rope_for(cfg, positions, mrope_positions)
     use_k = _use_kernels(cfg)
     mask = None if use_k else cm.chunk_mask(pos_map, positions, window=window)
     for i in range(cfg.n_layers):

@@ -33,7 +33,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.models import common as cm
-from repro_torch.weights import layer
+from repro_torch.models import dense
+from repro_torch.weights import layers
 
 _RGLRU_C = 8.0
 
@@ -64,12 +65,14 @@ def _subs(cfg, params):
     """(group or tail index, pattern slot, kind, that sub-block's leaves)
     in layer order, as (section, g, i, kind, p)."""
     pat, n_groups, tail = _pattern(cfg)
+    subs = [layers(params, f"groups/sub{i}_{kind}/")
+            for i, kind in enumerate(pat)]
     for g in range(n_groups):
         for i, kind in enumerate(pat):
-            yield "groups", g, i, kind, layer(params, g,
-                                              f"groups/sub{i}_{kind}/")
-    for t in range(tail):
-        yield "tail", t, 0, pat[0], layer(params, t, f"tail/sub0_{pat[0]}/")
+            yield "groups", g, i, kind, subs[i][g]
+    if tail:
+        for t, p in enumerate(layers(params, f"tail/sub0_{pat[0]}/")):
+            yield "tail", t, 0, pat[0], p
 
 
 # -------------------------------------------------------------------- rglru
@@ -180,19 +183,21 @@ def _final(cfg, params, x):
 
 
 def forward_seq(cfg: ModelConfig, params, x, positions, *, window=None,
-                cache_capacity: Optional[int] = None):
+                cache_capacity: Optional[int] = None, remat: bool = False):
     """x (B,S,d), positions (S,). Returns (logits, cache|None); the cache
-    is new, its rings holding the last min(C, S) positions."""
+    is new, its rings holding the last min(C, S) positions. ``remat``
+    recomputes each sub-layer's activations in the backward pass."""
     del window
-    B, S, _ = x.shape
+    S = x.shape[1]
     pat, n_groups, tail = _pattern(cfg)
     W = _window(cfg)
-    dev = x.device
     cos, sin, rope_dim = cm.rope_for(cfg, positions)
-    mask = cm.causal_mask(S, S, window=W, device=dev)
+    mask = cm.causal_mask(S, S, window=W, device=x.device)
     extras = {}
     for sec, g, i, kind, p in _subs(cfg, params):
-        x, extra = _sub_seq(cfg, kind, p, x, cos, sin, rope_dim, mask)
+        x, extra = cm.run_layer(
+            remat, lambda x, p, kind=kind: _sub_seq(cfg, kind, p, x, cos, sin,
+                                                    rope_dim, mask), x, p)
         extras.setdefault((sec, i), []).append(extra)
     logits = _final(cfg, params, x)
     if cache_capacity is None:
@@ -204,26 +209,9 @@ def forward_seq(cfg: ModelConfig, params, x, positions, *, window=None,
     for i, kind in enumerate(pat):
         a, b = (torch.stack(t) for t in zip(*extras[("groups", i)]))
         if kind == "attn":
-            k, v = a, b                                      # (G,B,S,Hk,D)
-            idx = torch.arange(C, device=dev)
-            if C >= S:
-                kc = k.new_zeros(k.shape[:2] + (C,) + k.shape[3:])
-                vc = torch.zeros_like(kc)
-                kc[:, :, :S] = k
-                vc[:, :, :S] = v
-                pos_map = torch.where(idx < S, idx, -1)
-            else:
-                keep = torch.arange(S - C, S, device=dev)
-                slots = keep % C
-                kc = torch.zeros_like(k[:, :, :C])
-                vc = torch.zeros_like(kc)
-                kc[:, :, slots] = k[:, :, S - C:]
-                vc[:, :, slots] = v[:, :, S - C:]
-                pos_map = torch.zeros((C,), dtype=torch.long, device=dev)
-                pos_map[slots] = keep
-            g[f"k{i}"], g[f"v{i}"] = kc, vc
-            cache_pos = pos_map.to(torch.int32)[None].expand(B, C) \
-                .contiguous()
+            ring = dense.seq_cache(a, b, C)             # a, b (G,B,S,Hk,D)
+            g[f"k{i}"], g[f"v{i}"] = ring["k"], ring["v"]
+            cache_pos = ring["pos_map"]
         else:
             g[f"conv{i}"], g[f"h{i}"] = a, b
     cache = {"groups": g, "pos_map": cache_pos}

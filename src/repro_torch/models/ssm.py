@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
-from repro_torch.weights import layer
+from repro_torch.weights import layer, layers
 
 
 def _use_kernels(cfg: ModelConfig) -> bool:
@@ -243,12 +243,15 @@ def prefill_chunk(cfg: ModelConfig, params, cache, x, offset=None, *,
 
 
 def forward_seq(cfg: ModelConfig, params, x, positions=None, *,
-                window: Optional[int] = None, cache_capacity=None):
-    """x (B,S,d). Returns (logits, cache|None); the cache is new."""
+                window: Optional[int] = None, cache_capacity=None,
+                remat: bool = False):
+    """x (B,S,d). Returns (logits, cache|None); the cache is new.
+    ``remat`` recomputes each layer's activations in the backward pass."""
     del positions, window
     convs, hs = [], []
-    for i in range(cfg.n_layers):
-        x, conv_state, h = _block_seq(cfg, layer(params, i), x)
+    for lp in layers(params):
+        x, conv_state, h = cm.run_layer(
+            remat, lambda x, lp: _block_seq(cfg, lp, x), x, lp)
         convs.append(conv_state)
         hs.append(h)
     cache = None

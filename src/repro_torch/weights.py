@@ -1,5 +1,5 @@
-"""Parameters of the dense, ssm (Mamba-2) and hybrid (RecurrentGemma)
-families as a flat dict of tensors.
+"""Parameters of every family of the zoo (dense, vlm, moe, ssm (Mamba-2),
+hybrid (RecurrentGemma) and encdec (Whisper)) as a flat dict of tensors.
 
 Leaves are keyed by the same ``a/b/c`` paths the JAX package's checkpoint
 flattening uses (``tok/embed``, ``layers/attn/wq``, ``final_norm/scale``,
@@ -13,9 +13,11 @@ the JAX package: ``A_log``, ``D`` and ``dt_bias`` of Mamba-2, ``b_a``,
 shape and dtype.
 
 ``init_params`` makes parameters from a ``torch.Generator`` with the JAX
-package's shapes and init rules (normal x 0.02 for matrices, x 0.2 for the
-causal convolutions, zeros for RMSNorm scales, which are applied as
-``1 + w``, and the fixed ``A_log``, ``D``, ``dt_bias`` and ``lam``).
+package's shapes and init rules (normal x 0.02 for matrices, experts,
+routers and learned positions, x 0.2 for the causal convolutions, zeros
+for RMSNorm scales, which are applied as ``1 + w``, ones and zeros for
+LayerNorm scales and biases, and the fixed ``A_log``, ``D``, ``dt_bias``
+and ``lam``).
 ``from_jax_params`` carries a JAX params pytree (already on the host as
 numpy arrays) across bit for bit, each leaf in its own dtype.
 """
@@ -66,19 +68,15 @@ def from_jax_params(tree, cfg: ModelConfig, device) -> Params:
 
 
 def load_jax_checkpoint(path, cfg: ModelConfig, device) -> Params:
-    """Read a params file written by the JAX package's ``save_checkpoint``
-    (msgpack of ``{path: {dtype, shape, data}}``). ``torch.frombuffer``
-    reads bf16 leaves, which plain numpy cannot."""
-    import msgpack
-    with open(path, "rb") as f:
-        payload = msgpack.unpackb(f.read(), strict_map_key=False)
-    out = {}
-    for key, rec in payload.items():
-        dtype = torch_dtype(rec["dtype"]) if rec["dtype"] in _DTYPES \
-            else torch.from_numpy(np.zeros(0, rec["dtype"])).dtype
-        t = torch.frombuffer(bytearray(rec["data"]), dtype=dtype)
-        out[key] = t.reshape(rec["shape"])
-    return from_tensors(out, cfg, device)
+    """Read a params file written by either package's ``save_checkpoint``
+    (msgpack of ``{path: {dtype, shape, data}}``). A trainer's file saves
+    ``{"params": ...}``, so its keys carry a ``params/`` prefix, which is
+    dropped; its other entries (none today) are left out."""
+    from repro_torch.checkpoint import read_checkpoint
+    flat = read_checkpoint(path)
+    if all(k.startswith("params/") for k in flat):
+        flat = {k[len("params/"):]: v for k, v in flat.items()}
+    return from_tensors(flat, cfg, device)
 
 
 def from_tensors(flat: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -178,26 +176,59 @@ def _hybrid_blocks(cfg, dtype):
     return out
 
 
+def _attn_block(cfg, prefix, lead, dtype, mlp=True):
+    """ln1, attention, ln2 and (with ``mlp``) the MLP of a layer stack."""
+    d = cfg.d_model
+    out = (_norm(cfg, f"{prefix}/ln1", lead, d, dtype)
+           + _attention(cfg, f"{prefix}/attn", lead, dtype)
+           + _norm(cfg, f"{prefix}/ln2", lead, d, dtype))
+    return out + _mlp(cfg, f"{prefix}/mlp", lead, dtype) if mlp else out
+
+
+def _moe_experts(cfg, lead, dtype):
+    m, d = cfg.moe, cfg.d_model
+    E, ff = m.n_experts, m.d_ff_expert
+    return [("layers/moe/router", lead + (d, E), dtype),
+            ("layers/moe/w_gate", lead + (E, d, ff), dtype),
+            ("layers/moe/w_up", lead + (E, d, ff), dtype),
+            ("layers/moe/w_down", lead + (E, ff, d), dtype)]
+
+
+def _encdec(cfg, dtype):
+    d = cfg.d_model
+    Le, Ld = (cfg.encoder.n_layers,), (cfg.n_layers,)
+    dec = "dec_layers"
+    return ([("pos", (cfg.max_seq_len, d), dtype)]
+            + _attn_block(cfg, "enc_layers", Le, dtype)
+            + _norm(cfg, "enc_norm", (), d, dtype)
+            + _norm(cfg, f"{dec}/ln1", Ld, d, dtype)
+            + _attention(cfg, f"{dec}/self_attn", Ld, dtype)
+            + _norm(cfg, f"{dec}/ln_x", Ld, d, dtype)
+            + _attention(cfg, f"{dec}/cross_attn", Ld, dtype)
+            + _norm(cfg, f"{dec}/ln2", Ld, d, dtype)
+            + _mlp(cfg, f"{dec}/mlp", Ld, dtype))
+
+
 def param_shapes(cfg: ModelConfig):
-    """(path, shape, dtype) of every leaf, in JAX init order."""
+    """(path, shape, dtype) of every leaf."""
     dtype = torch_dtype(cfg.dtype)
     L, d = (cfg.n_layers,), cfg.d_model
     shapes = [("tok/embed", (cfg.padded_vocab, d), dtype)]
     if not cfg.tie_embeddings:
         shapes.append(("tok/unembed", (d, cfg.padded_vocab), dtype))
-    if cfg.family == "dense":
-        shapes += (_norm(cfg, "layers/ln1", L, d, dtype)
-                   + _attention(cfg, "layers/attn", L, dtype)
-                   + _norm(cfg, "layers/ln2", L, d, dtype)
-                   + _mlp(cfg, "layers/mlp", L, dtype))
+    if cfg.family in ("dense", "vlm"):
+        shapes += _attn_block(cfg, "layers", L, dtype)
+    elif cfg.family == "moe":
+        shapes += _attn_block(cfg, "layers", L, dtype, mlp=False) \
+            + _moe_experts(cfg, L, dtype)
     elif cfg.family == "ssm":
         shapes += _ssm_layers(cfg, dtype)
     elif cfg.family == "hybrid":
         shapes += _hybrid_blocks(cfg, dtype)
+    elif cfg.family == "encdec":
+        shapes += _encdec(cfg, dtype)
     else:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, ssm and "
-            "hybrid are)")
+        raise ValueError(f"unknown family {cfg.family!r}")
     return shapes + _norm(cfg, "final_norm", (), d, dtype)
 
 
@@ -230,7 +261,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Seeded parameters by the JAX package's init rules (see the module
     docstring). The draws come from ``generator`` (on ``device``'s type),
     so they differ from JAX's."""
-    return {path: _init_leaf(cfg, path.rsplit("/", 1)[1], shape, dtype,
+    return {path: _init_leaf(cfg, path.rsplit("/", 1)[-1], shape, dtype,
                              generator, device)
             for path, shape, dtype in param_shapes(cfg)}
 
@@ -240,3 +271,16 @@ def layer(params: Params, i: int, prefix: str = "layers/") -> Params:
     ``groups/sub0_rglru/``), keyed by the path below it (views)."""
     n = len(prefix)
     return {k[n:]: v[i] for k, v in params.items() if k.startswith(prefix)}
+
+
+def layers(params: Params, prefix: str = "layers/"):
+    """Every entry of the stack under ``prefix``, as :func:`layer` gives
+    each, from one ``unbind`` per leaf. Under autograd a leaf's gradient is
+    then one stack of the entries' gradients; indexing each entry apart
+    adds a zero-filled gradient of the whole stack per entry, which costs
+    the backward pass O(L^2) in the layer count."""
+    n = len(prefix)
+    leaves = {k[n:]: v.unbind(0) for k, v in params.items()
+              if k.startswith(prefix)}
+    count = len(next(iter(leaves.values())))
+    return [{k: v[i] for k, v in leaves.items()} for i in range(count)]

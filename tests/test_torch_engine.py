@@ -271,6 +271,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import repro_torch.bench.bench_engine_step\n"
         "import repro_torch.bench.bench_speculative\n"
         "import repro_torch.sim, repro_torch.sim.policies\n"
+        "import repro_torch.models.api, repro_torch.models.moe\n"
+        "import repro_torch.models.encdec, repro_torch.launch.train\n"
+        "import repro_torch.optim, repro_torch.checkpoint, repro_torch.data\n"
         "repro_torch.launch.serve.main(['--mode', 'sim', '--arch',"
         " 'olmoe-1b-7b', '--trace', 'spike', '--rate', '1',"
         " '--duration', '10'])\n"

@@ -41,6 +41,7 @@ PAGED_SHAPES = [
     (3, 8, 1, 128, 32, 16, 3),
     (1, 16, 16, 64, 16, 64, 8),
     (8, 16, 8, 128, 128, 64, 8),  # engine decode, qwen3-1.7b, C=1024
+    (8, 12, 2, 128, 128, 64, 8),  # qwen2-vl-2b decode (G = 6), C=1024
 ]
 SSD_SHAPES = [                    # B, S, H, P, N, Q
     (2, 64, 3, 32, 16, 16),
@@ -514,3 +515,40 @@ def test_legacy_streams_equal_fused_f32(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
     assert legacy == fused
+
+
+def test_kernels_refuse_inputs_that_require_grad(cuda):
+    """No kernel has a backward: each wrapper raises on CUDA inputs that
+    require grad (a detached output would train with zero gradients), and
+    launches as usual under torch.no_grad()."""
+    bf = torch.bfloat16
+
+    def rnd(*shape, grad=False):
+        return torch.randn(shape, device=cuda).to(bf).requires_grad_(grad)
+
+    q, k, v = rnd(1, 64, 12, 128, grad=True), rnd(1, 64, 2, 128), \
+        rnd(1, 64, 2, 128)
+    qd, kp, vp = rnd(2, 12, 128, grad=True), rnd(2, 64, 2, 128), \
+        rnd(2, 64, 2, 128)
+    pt = torch.arange(2, dtype=torch.int32, device=cuda)[:, None]
+    ln = torch.tensor([10, 64], dtype=torch.int32, device=cuda)
+    xs = torch.randn(1, 32, 2, 16, device=cuda, requires_grad=True)
+    la = -torch.rand(1, 32, 2, device=cuda)
+    bm, cm_ = torch.randn(1, 32, 1, 8, device=cuda), \
+        torch.randn(1, 32, 1, 8, device=cuda)
+    ga = torch.randn(1, 32, 64, device=cuda, requires_grad=True)
+    calls = {"flash_seq_op": lambda: flash_seq_op(q, k, v),
+             "flash_chunk_op": lambda: flash_chunk_op(q, k, v, 0),
+             "paged_attention_op": lambda: paged_attention_op(
+                 qd, kp, vp, pt, ln),
+             "ssd_scan_op": lambda: ssd_scan_op(xs, la, bm, cm_, 16),
+             "rglru_scan_op": lambda: rglru_scan_op(
+                 -torch.rand(1, 32, 64, device=cuda), ga)}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            out = call()
+        torch.cuda.synchronize()
+        out = out[0] if isinstance(out, tuple) else out
+        assert torch.isfinite(out.float()).all(), name
