@@ -45,6 +45,15 @@ trainer (``repro_torch.launch.train``) takes 20 full-width qwen3-1.7b
 steps, whose loss must fall and whose checkpoint must read back bit for
 bit, and 3 steps of olmoe-1b-7b at 2 layers with finite gradients.
 
+Then the distribution layer (``repro_torch.distributed``): the step
+builders on a 1x1 NCCL mesh (one card holds one rank) at qwen3-1.7b's full
+width through ``distribute_params``: 3 train steps whose losses must
+match the trainer's, and a prefill with 8 decode steps on both attention
+routes held to ``build_model``'s own, the kernels counted under the
+DTensor wrappers; then ``repro_torch.launch.dryrun`` in subprocesses off
+the card (qwen3-1.7b x train_4k, prefill_32k, decode_32k; olmoe-1b-7b x
+train_4k with expert parallelism), each record printed.
+
 Needs one CUDA device (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc. TF32 is switched off for float32 matmuls and
 convolutions, so float32 comparisons are full precision. Exits non-zero on
@@ -55,6 +64,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -759,7 +769,7 @@ PROFILE_LENGTHS = (16, 32, 64, 128, 256, 1024)
 # measured / coded bounds for the InstanceProfile defaults, which are the
 # medians of this phase's measurements on the H100 (PERF.md section 5):
 # the runs' spread around them (flop_eff, mem_eff within 2%; overhead
-# 0.91-1.26; link_bw 0.95-1.08; link_latency 0.88-1.78), widened
+# 0.91-1.26; link_bw 1.00-1.04 and link_latency 0.67-1.16, pinned), widened
 DEFAULT_BANDS = {"flop_eff": (0.9, 1.1), "mem_eff": (0.9, 1.1),
                  "overhead": (2 / 3, 1.5), "hbm_bytes": (1.0, 1.0),
                  "link_bw": (2 / 3, 1.5), "link_latency": (0.5, 2.0)}
@@ -868,13 +878,14 @@ def copy_ms(dst, src, iters: int = 10, reps: int = 5) -> float:
 
 def round_trip_s(slots, L: int, reps: int = 5) -> dict:
     """One migration of an ``L``-token context between two slots of
-    ``slots``: ``extract_state`` (device to host, into host buffers it
-    allocates afresh) then ``place_state`` (host to device), as
-    export_state / import_state move it, synchronised. Medians over
-    ``reps`` trips after a warm-up trip of the round trip's seconds, of
-    each half's, and of the same device-to-host copy into host buffers
-    that stay resident across trips: the gap between the two device-to-host
-    times is what first touches of fresh pageable pages cost."""
+    ``slots``: ``extract_state`` (device to host, into pinned host buffers
+    from PyTorch's caching host allocator, which hands freed blocks out
+    again) then ``place_state`` (host to device), as export_state /
+    import_state move it, synchronised. Medians over ``reps`` trips after
+    a warm-up trip of the round trip's seconds, of each half's, and of the
+    same device-to-host copy into pageable host buffers that stay resident
+    across trips (``d2h_resident_s``): what the copy cost before the
+    staging was pinned, on a host whose pages were already touched."""
     slots.alloc(0)
     slots.alloc(1)
     slots.len_of[0] = L
@@ -904,10 +915,11 @@ def round_trip_s(slots, L: int, reps: int = 5) -> dict:
 
 
 def measure_link() -> dict:
-    """The migration link's constants: the payloads' round trips (qwen3
-    at 1, 117, 579 and 1024 tokens, mamba2 and recurrentgemma at one
-    context each); latency is the smallest payload's round trip, the rate
-    the least-squares slope of the others' times above it."""
+    """The migration link's constants: the payloads' round trips through
+    pinned host memory (qwen3 at 1, 117, 579 and 1024 tokens, mamba2 and
+    recurrentgemma at one context each); latency is the smallest payload's
+    round trip, the rate the least-squares slope of the others' times
+    above it."""
     from repro_torch.configs import get_config
     from repro_torch.engine.state_slots import make_state_slots
     dev = torch.device("cuda")
@@ -1459,6 +1471,225 @@ def train_phase(smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ distributed
+
+
+DIST_TRAIN = (3, 8, 128)        # steps, batch, seq
+DIST_B, DIST_S, DIST_C, DIST_STEPS = 2, 512, 1024, 8
+DRYRUNS = (("qwen3-1.7b", "train_4k", ""), ("qwen3-1.7b", "prefill_32k", ""),
+           ("qwen3-1.7b", "decode_32k", ""), ("olmoe-1b-7b", "train_4k",
+                                               "moe_ep"))
+
+
+def timed(fn):
+    """(out, wall ms, device ms) of one synchronised call: the host clock
+    around it, and the device time of every kernel it launched
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    return out, wall, busy
+
+
+def dist_train(cfg, mesh, smi: str) -> None:
+    """make_train_step on the 1x1 mesh: DIST_TRAIN steps from the trainer's
+    seed-0 weights and its synthetic batches (seed 1), whose losses must
+    match launch/train.py's on the same steps within 1e-3 relative."""
+    from repro_torch.configs import InputShape
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.distributed import sharding as shd, steps as dsteps
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw_init
+    from repro_torch.weights import init_params
+    n, B, S = DIST_TRAIN
+    dev = torch.device("cuda")
+    ref = train.main(["--arch", cfg.arch_id, "--steps", str(n), "--batch",
+                      str(B), "--seq", str(S), "--log-every", "1",
+                      "--device", "cuda"])["losses"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, step = dsteps.make_train_step(cfg, InputShape("train_card", S, B,
+                                                     "train"))
+    params = shd.distribute_params(init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev), mesh)
+    opt = adamw_init(params)
+    pipe = iter(SyntheticTokenPipeline(cfg.vocab_size, S, B, seed=1))
+    losses, times = [], []
+    for _ in range(n):
+        batch = dsteps.shard_batch(
+            {"tokens": torch.from_numpy(next(pipe)["tokens"]).to(dev)}, mesh)
+        (params, opt, loss), wall, busy = timed(
+            lambda: step(params, opt, batch))
+        losses.append(float(loss.full_tensor()))
+        times.append({"wall_ms": wall, "device_ms": busy})
+    diff = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    log({"dist_train": {"arch": cfg.arch_id, "mesh": "1x1", "steps": n,
+                        "batch": B, "seq": S, "losses": losses,
+                        "trainer_losses": ref, "max_rel_diff": diff,
+                        "steps_ms": times, "card": smi}})
+    if not diff <= 1e-3:
+        raise AssertionError(f"make_train_step losses {losses} differ from "
+                             f"the trainer's {ref}")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dist_serve(cfg, mesh, smi: str) -> dict:
+    """make_prefill_step (B 2 x 512, capacity 1024) and DIST_STEPS
+    make_decode_step steps on the 1x1 mesh, once on the reference attention
+    and once on the kernels, each held to build_model's own prefill and
+    decode on the same weights (LOGIT_TOL x max|ref|); every launch count
+    set to 0 before each step and read after it: the kernels must have run
+    under the DTensor wrappers. Returns the kernels' launches."""
+    from repro_torch.configs import InputShape
+    from repro_torch.distributed import sharding as shd, steps as dsteps
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.weights import init_params
+    dev = torch.device("cuda")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(23)
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, size=(DIST_B, DIST_S + DIST_STEPS)).astype(
+            np.int32)).to(dev)
+    dec = [{"token": tokens[:, DIST_S + i:DIST_S + i + 1],
+            "pos": torch.full((DIST_B,), DIST_S + i, dtype=torch.int32,
+                              device=dev)} for i in range(DIST_STEPS)]
+    model = build_model(cfg)
+    with torch.no_grad():
+        (ref, cache), wall, busy = timed(lambda: model.prefill(
+            params, {"tokens": tokens[:, :DIST_S]}, DIST_C))
+        ref = [ref[:, -1]]
+        plain = {"prefill": {"wall_ms": wall, "device_ms": busy},
+                 "decode": []}
+        for d in dec:
+            (lg, cache), wall, busy = timed(
+                lambda: model.decode(params, cache, d))
+            ref.append(lg[:, 0])
+            plain["decode"].append({"wall_ms": wall, "device_ms": busy})
+    del cache
+    dp = shd.distribute_params(params, mesh)
+    del params
+    shape = InputShape("prefill_card", DIST_C, DIST_B, "prefill")
+    counts = {"flash_seq_op": 0, "paged_attention_op": 0}
+    for impl in ("reference", "hopper"):
+        c = cfg.replace(attn_impl=impl)
+        _, prefill = dsteps.make_prefill_step(c, shape)
+        _, decode = dsteps.make_decode_step(c, shape)
+        batch = dsteps.shard_batch({"tokens": tokens[:, :DIST_S]}, mesh)
+        reset_launch_counts()
+        (last, cache), wall, busy = timed(lambda: prefill(dp, batch))
+        launches = {"prefill": launch_counts()}
+        outs = [last.full_tensor()]
+        times = {"prefill": {"wall_ms": wall, "device_ms": busy},
+                 "decode": []}
+        decode_counts = {}
+        for d in dec:
+            b = dsteps.shard_batch(d, mesh)
+            reset_launch_counts()
+            (lg, cache), wall, busy = timed(lambda: decode(dp, cache, b))
+            for k, v in launch_counts().items():
+                decode_counts[k] = decode_counts.get(k, 0) + v
+            outs.append(lg.full_tensor()[:, 0])
+            times["decode"].append({"wall_ms": wall, "device_ms": busy})
+        launches["decode"] = decode_counts
+        del cache
+        errs = [max_err(o, r) / float(r.float().abs().max())
+                for o, r in zip(outs, ref)]
+        log({"dist_serve": {"arch": cfg.arch_id, "mesh": "1x1",
+                            "attn_impl": impl, "B": DIST_B, "S": DIST_S,
+                            "capacity": DIST_C, "decode_steps": DIST_STEPS,
+                            "max_err_over_max_ref": max(errs),
+                            "prefill_err": errs[0], "launches": launches,
+                            "steps_ms": times,
+                            "build_model_ms": plain, "card": smi}})
+        if not max(errs) <= LOGIT_TOL:
+            raise AssertionError(f"distributed {impl} logits differ from "
+                                 f"build_model's: {errs}")
+        if impl == "hopper":
+            idle = [k for k, n in (("flash_seq_op",
+                                    launches["prefill"]["flash_seq_op"]),
+                                   ("paged_attention_op",
+                                    decode_counts["paged_attention_op"]))
+                    if n == 0]
+            if idle:
+                raise AssertionError(f"kernels never launched under the "
+                                     f"DTensor steps: {idle}")
+            counts["flash_seq_op"] += launches["prefill"]["flash_seq_op"]
+            counts["paged_attention_op"] += \
+                decode_counts["paged_attention_op"]
+    del dp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dist_dryruns(smi: str) -> None:
+    """python -m repro_torch.launch.dryrun for each of DRYRUNS on the 16x16
+    fake mesh, in subprocesses run side by side off the card (the fake
+    process group cannot share this process with the NCCL one); every
+    record printed, and any that is not ok fails the phase."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    procs = []
+    for arch, shape, opt in DRYRUNS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--single-pod"]
+        if opt:
+            cmd += ["--opt", opt]
+        procs.append((cmd, time.perf_counter(), subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    bad = []
+    for cmd, t0, proc in procs:
+        out, err = proc.communicate(timeout=600)
+        wall = time.perf_counter() - t0
+        paths_ = [ln.split(" ", 1)[1] for ln in out.splitlines()
+                  if ln.startswith("[dryrun-record] ")]
+        if proc.returncode or len(paths_) != 1:
+            bad.append((cmd, proc.returncode, err[-1500:]))
+            continue
+        rec = json.loads(Path(paths_[0]).read_text())
+        log({"dryrun": {k: rec.get(k) for k in (
+            "arch", "shape", "mesh", "opts", "status", "flops",
+            "bytes_accessed", "collective_bytes", "memory", "trace_s",
+            "error")}, "process_wall_s": wall, "card": smi,
+            "counted": "per device (rank 0 of the fake 16x16 mesh), off "
+                       "the card"})
+        if rec["status"] != "ok":
+            bad.append((cmd, rec["status"], rec.get("error")))
+    if bad:
+        raise AssertionError(f"dry-runs failed: {bad}")
+
+
+def dist_phase(smi: str) -> dict:
+    """The distribution layer: the step builders on a 1x1 local mesh (NCCL,
+    one rank: the card cannot hold two) at qwen3-1.7b's full width (bf16,
+    seed-0 weights) through distribute_params, then the dry-run launcher
+    on the fake production mesh. Multi-rank numerics are the CPU tests'
+    (gloo). Returns the kernels' launches."""
+    from repro_torch.launch.mesh import destroy, make_local_mesh
+    t0 = time.perf_counter()
+    cfg = get_cfg("qwen3-1.7b")
+    mesh = make_local_mesh()
+    try:
+        dist_train(cfg, mesh, smi)
+        counts = dist_serve(cfg, mesh, smi)
+    finally:
+        destroy()
+    t1 = time.perf_counter()
+    dist_dryruns(smi)
+    log({"dist_phase_s": {"card": t1 - t0,
+                          "dryruns": time.perf_counter() - t1}})
+    return counts
+
+
 def paths():
     """(arch, the kernels its engine path must launch, the profiler tags of
     those kernels) for each path, in the order they run."""
@@ -1538,6 +1769,9 @@ def main() -> int:
     for w in ("flash_seq_op", "paged_attention_op"):
         counts[w] += zoo_counts[w]
     train_phase(smi)
+    dist_counts = dist_phase(smi)
+    for w in ("flash_seq_op", "paged_attention_op"):
+        counts[w] += dist_counts[w]
     log({"kernels": [
         {"name": r["name"], "route": r["route"], "source": r["source"],
          "replaces": r["replaces"], "launches": counts[r["wrapper"].__name__],

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.engine.state_slots import StateSlotsBase
+from repro_torch.engine.state_slots import StateSlotsBase, host_copy
 
 
 class SlotKVCache(StateSlotsBase):
@@ -81,10 +81,11 @@ class SlotKVCache(StateSlotsBase):
 
     def extract(self, rid: int):
         """For KV transfer to another instance: (k (L,S,Hk,D), v, length)
-        as host tensors — one stacked device-to-host copy."""
+        as host tensors — one stacked device-to-host copy (into pinned
+        memory when the slabs are on the card)."""
         s = self.slot_of[rid]
         L = self.len_of[rid]
-        kv = torch.stack([self.k[:, s, :L], self.v[:, s, :L]]).cpu()
+        kv = host_copy(torch.stack([self.k[:, s, :L], self.v[:, s, :L]]))
         return kv[0], kv[1], L
 
     # ---------------------------------------- family-agnostic migration

@@ -31,6 +31,17 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 
+
+def host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous host copy of ``t``, never a view of it. A card tensor
+    is copied into pinned (page-locked) memory, whose copy runs at the
+    link's rate whatever the host's load; PyTorch's caching host allocator
+    hands freed pinned blocks out again, so each payload still gets a
+    buffer of its own. A host tensor is copied into ordinary memory."""
+    return torch.empty(t.shape, dtype=t.dtype,
+                       pin_memory=t.is_cuda).copy_(t)
+
+
 class StateSlotsBase:
     """Host bookkeeping shared by every decode-state implementation, plus
     the per-architecture capability flags the scheduling layer reads."""
@@ -121,10 +132,7 @@ class _FixedStateSlots(StateSlotsBase):
         s = self.slot_of[rid]
         payload = []
         for a, axis in self._leaves():
-            row = a.select(axis, s)
-            # a contiguous host copy, never a view of the slab
-            payload.append(torch.empty(row.shape, dtype=row.dtype)
-                           .copy_(row))
+            payload.append(host_copy(a.select(axis, s)))
         return payload, self.len_of[rid]
 
     def place_state(self, rid: int, payload, length: int) -> None:

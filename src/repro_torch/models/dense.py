@@ -16,6 +16,11 @@ kernels (``repro_torch.kernels``): flash prefill for ``forward_seq`` and
 ``prefill_chunk``, paged decode for ``decode_step``. The kernels have no
 backward: training runs the ``reference`` route.
 
+``forward_seq`` and ``decode_step`` also run on DTensors (the step builders
+of :mod:`repro_torch.distributed.steps`): the kernels then run on each
+rank's batch rows and heads (``cm.on_shards``), and the new cache is built
+and written on each rank's block.
+
 The VLM family (qwen2-vl) is this backbone with M-RoPE: its stub vision
 frontend hands ``forward_seq`` embeddings and (t, h, w) positions.
 """
@@ -61,6 +66,7 @@ def forward_seq(cfg: ModelConfig, params, x, positions, *,
     (logits (B,S,V_padded), cache | None); the cache is new. ``remat``
     recomputes each layer's activations in the backward pass."""
     B, S, _ = x.shape
+    x = cm.constrain_batch(cfg, x)
     cos, sin, rope_dim = cm.rope_for(cfg, positions, mrope_positions)
     use_k = _use_kernels(cfg)
     mask = None if use_k else cm.causal_mask(S, S, window=window,
@@ -69,12 +75,13 @@ def forward_seq(cfg: ModelConfig, params, x, positions, *,
     def body(x, lp):
         h = cm.apply_norm(cfg, lp, "ln1", x)
         q, k, v = cm.attention_qkv(cfg, lp, h, cos, sin, rope_dim)
+        q, k, v = cm.constrain_seq_attention(cfg, q, k, v)
         if use_k:
-            from repro_torch.kernels.flash_prefill import flash_seq_op
-            o = flash_seq_op(q, k, v, window=window).reshape(B, S, -1)
+            o = _flash_seq(q, k, v, window)
         else:
             o = cm.sdpa(q, k, v, mask, cfg.logit_softcap)
-        return _mlp_residual(cfg, lp, x + o @ lp["attn/wo"]), k, v
+        x = _mlp_residual(cfg, lp, x + cm.settled(o @ lp["attn/wo"]))
+        return cm.constrain_batch(cfg, x), k, v
 
     ks, vs = [], []
     for lp in layers(params):
@@ -88,10 +95,38 @@ def forward_seq(cfg: ModelConfig, params, x, positions, *,
     return logits, cache
 
 
+def _flash_seq(q, k, v, window):
+    """The flash kernel over q (B,S,H,D), k/v (B,S,Hk,D) -> (B,S,H*D); on
+    DTensors on each rank's batch rows and heads."""
+    from repro_torch.kernels.flash_prefill import flash_seq_op
+
+    def local(q, k, v, mask, split):
+        _whole_sequence(q, split)
+        return flash_seq_op(q, k, v, window=window).reshape(
+            q.shape[0], q.shape[1], -1)
+
+    if isinstance(q, cm.DTensor):
+        _whole_sequence(q, ())
+        return cm.on_shards(local, q, k, v, None)
+    return local(q, k, v, None, ())
+
+
+def _whole_sequence(q, split):
+    """The kernels take whole sequences: no query or key blocks."""
+    if split or (isinstance(q, cm.DTensor) and any(
+            p == cm.Shard(1) and q.device_mesh.size(i) > 1
+            for i, p in enumerate(q.placements))):
+        raise NotImplementedError("attn_impl='hopper' does not split the "
+                                  "sequence over ranks")
+
+
 def seq_cache(ks, vs, C: int):
     """The decode cache of a full-sequence pass: K/V (L,B,S,Hk,D) of
     positions [0, S) placed in a new cache of capacity ``C``; with C < S
-    the last C positions at their ring slots (slot = pos % C)."""
+    the last C positions at their ring slots (slot = pos % C). On DTensors
+    each rank builds its block (split on batch and heads as ks is)."""
+    if isinstance(ks, cm.DTensor):
+        return _seq_cache_sharded(ks, vs, C)
     B, S = ks.shape[1], ks.shape[2]
     dev = ks.device
     if C >= S:
@@ -116,6 +151,18 @@ def seq_cache(ks, vs, C: int):
     return {"k": kc, "v": vc, "pos_map": pos_map}
 
 
+def _seq_cache_sharded(ks, vs, C: int):
+    mesh, R = ks.device_mesh, cm.Replicate()
+    kv_pl = [R if p == cm.Shard(2) or p.is_partial() else p
+             for p in ks.placements]
+    pm_pl = [cm.Shard(0) if p == cm.Shard(1) else R for p in kv_pl]
+    out = seq_cache(ks.redistribute(mesh, kv_pl).to_local(),
+                    vs.redistribute(mesh, kv_pl).to_local(), C)
+    pl = {"k": kv_pl, "v": kv_pl, "pos_map": pm_pl}
+    return {name: cm.DTensor.from_local(t, mesh, pl[name], run_check=False)
+            for name, t in out.items()}
+
+
 def decode_step(cfg: ModelConfig, params, cache, x, pos, *,
                 mrope_positions=None, window: Optional[int] = None):
     """x (B,1,d) new-token embeddings; pos (B,) absolute positions (a
@@ -129,25 +176,22 @@ def decode_step(cfg: ModelConfig, params, cache, x, pos, *,
     serving engine's contract) and masks by context length instead of the
     pos_map."""
     B = x.shape[0]
+    x = cm.constrain_batch(cfg, x)
     kc, vc, pos_map = cache["k"], cache["v"], cache["pos_map"]
     C = kc.shape[2]
     pos = pos.long()
     slot = pos % C
     bidx = torch.arange(B, device=x.device)
-    pos_map[bidx, slot] = pos.to(torch.int32)
+    cm.write_slots(pos_map, pos.to(torch.int32), slot, bidx)
     cos, sin, rope_dim = cm.rope_for(cfg, pos[:, None], mrope_positions)
     use_k = _use_kernels(cfg)
     if use_k:
         if window is not None:
             raise NotImplementedError(
                 "attn_impl='hopper' decode has no sliding-window variant")
-        from repro_torch.kernels.flash_prefill.ops import _block_size
-        from repro_torch.kernels.paged_attention import paged_attention_op
-        page = _block_size(C)             # pages tile the slot's capacity
-        MP = C // page
-        page_table = (bidx[:, None] * MP + torch.arange(
-            MP, device=x.device)[None, :]).to(torch.int32)
         lengths = (pos + 1).to(torch.int32)
+        table = None if isinstance(kc, cm.DTensor) else page_table(B, C,
+                                                                    x.device)
     else:
         mask = cm.decode_mask(pos_map, pos, window=window)
     for i in range(cfg.n_layers):
@@ -155,17 +199,44 @@ def decode_step(cfg: ModelConfig, params, cache, x, pos, *,
         h = cm.apply_norm(cfg, lp, "ln1", x)
         q, k, v = cm.attention_qkv(cfg, lp, h, cos, sin, rope_dim)
         ck, cv = kc[i], vc[i]                          # (B,C,Hk,D) views
-        ck[bidx, slot] = k[:, 0]
-        cv[bidx, slot] = v[:, 0]
+        cm.write_slots(ck, k[:, 0], slot, bidx)
+        cm.write_slots(cv, v[:, 0], slot, bidx)
         if use_k:
-            Hk, D = ck.shape[2], ck.shape[3]
-            o = paged_attention_op(q[:, 0], ck.view(B * MP, page, Hk, D),
-                                   cv.view(B * MP, page, Hk, D), page_table,
-                                   lengths).reshape(B, 1, -1)
+            o = _paged(q, ck, cv, lengths, table)
         else:
             o = cm.sdpa(q, ck, cv, mask, cfg.logit_softcap)
-        x = _mlp_residual(cfg, lp, x + o @ lp["attn/wo"])
+        x = _mlp_residual(cfg, lp, x + cm.settled(o @ lp["attn/wo"]))
     return _final(cfg, params, x), cache
+
+
+def page_table(B: int, C: int, device):
+    """(B, C // page) int32: row b's slot cache viewed as its own run of
+    contiguous pages."""
+    from repro_torch.kernels.flash_prefill.ops import _block_size
+    MP = C // _block_size(C)              # pages tile the slot's capacity
+    return (torch.arange(B, device=device)[:, None] * MP + torch.arange(
+        MP, device=device)[None, :]).to(torch.int32)
+
+
+def _paged(q, ck, cv, lengths, table):
+    """The paged decode kernel over one layer's slot cache ck/cv (B,C,Hk,D),
+    viewed as contiguous pages (``table``, from :func:`page_table`), for q
+    (B,1,H,D) at context ``lengths`` (B,) -> (B,1,H*D); on DTensors on each
+    rank's batch rows and heads, with the table of its rows."""
+    from repro_torch.kernels.paged_attention import paged_attention_op
+
+    def local(q, ck, cv, lengths, split):
+        _whole_sequence(q, split)
+        B, C, Hk, D = ck.shape
+        t = table if table is not None else page_table(B, C, q.device)
+        page = C // t.shape[1]
+        return paged_attention_op(q[:, 0], ck.view(-1, page, Hk, D),
+                                  cv.view(-1, page, Hk, D), t,
+                                  lengths).reshape(B, 1, -1)
+
+    if isinstance(q, cm.DTensor):
+        return cm.on_shards(local, q, ck, cv, lengths)
+    return local(q, ck, cv, lengths, ())
 
 
 def prefill_chunk(cfg: ModelConfig, params, cache, x, offset: int, *,
@@ -182,6 +253,7 @@ def prefill_chunk(cfg: ModelConfig, params, cache, x, offset: int, *,
     [0, offset) must be contiguously valid (the engine's KV prefix
     contract)."""
     B, Sq, _ = x.shape
+    x = cm.constrain_batch(cfg, x)
     kc, vc, pos_map = cache["k"], cache["v"], cache["pos_map"]
     offset = int(offset)
     if offset + Sq > kc.shape[2]:
@@ -205,7 +277,7 @@ def prefill_chunk(cfg: ModelConfig, params, cache, x, offset: int, *,
                                window=window).reshape(B, Sq, -1)
         else:
             o = cm.sdpa(q, ck, cv, mask, cfg.logit_softcap)
-        x = _mlp_residual(cfg, lp, x + o @ lp["attn/wo"])
+        x = _mlp_residual(cfg, lp, x + cm.settled(o @ lp["attn/wo"]))
     return _final(cfg, params, x), cache
 
 

@@ -34,13 +34,14 @@ def encode(cfg: ModelConfig, params, audio_embeds, remat: bool = False):
     """audio_embeds (B, F, d), the stub frontend's output -> (B, F, d)."""
     F_ = audio_embeds.shape[1]
     pos = cm.sinusoidal_positions(F_, cfg.d_model, device=audio_embeds.device)
-    x = audio_embeds + pos.to(audio_embeds.dtype)[None]
+    x = cm.constrain_batch(
+        cfg, audio_embeds + pos.to(audio_embeds.dtype)[None])
     zero = _no_mask(x.device)
 
     def body(x, lp):
         h = cm.apply_norm(cfg, lp, "ln1", x)
         q, k, v = cm.attention_qkv(cfg, lp, h, None, None, 0)
-        x = x + cm.sdpa(q, k, v, zero) @ lp["attn/wo"]
+        x = x + cm.settled(cm.sdpa(q, k, v, zero) @ lp["attn/wo"])
         return x + cm.mlp(cfg, lp, cm.apply_norm(cfg, lp, "ln2", x))
 
     for lp in layers(params, "enc_layers/"):
@@ -59,14 +60,15 @@ def _dec_block(cfg, lp, x, mask, ck, cv, self_kv=None, slot=None):
     if self_kv is not None:
         kc, vc = self_kv
         bidx = torch.arange(x.shape[0], device=x.device)
-        kc[bidx, slot] = k[:, 0]
-        vc[bidx, slot] = v[:, 0]
+        cm.write_slots(kc, k[:, 0], slot, bidx)
+        cm.write_slots(vc, v[:, 0], slot, bidx)
         k, v = kc, vc
-    x = x + cm.sdpa(q, k, v, mask) @ lp["self_attn/wo"]
+    x = x + cm.settled(cm.sdpa(q, k, v, mask) @ lp["self_attn/wo"])
     h = cm.apply_norm(cfg, lp, "ln_x", x)
     B, S, _ = h.shape
-    qx = (h @ lp["cross_attn/wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim_)
-    x = x + cm.sdpa(qx, ck, cv, _no_mask(x.device)) @ lp["cross_attn/wo"]
+    qx = cm.split_heads(h @ lp["cross_attn/wq"], cfg.n_heads, cfg.head_dim_)
+    x = x + cm.settled(
+        cm.sdpa(qx, ck, cv, _no_mask(x.device)) @ lp["cross_attn/wo"])
     x = x + cm.mlp(cfg, lp, cm.apply_norm(cfg, lp, "ln2", x))
     return x, k, v
 
@@ -94,6 +96,7 @@ def forward_seq(cfg: ModelConfig, params, tokens, audio_embeds, *,
         enc_out = encode(cfg, params, audio_embeds, remat=remat)
     B, S = tokens.shape
     x = cm.embed(cfg, params, tokens) + params["pos"][:S][None]
+    x = cm.constrain_batch(cfg, x)
     mask = cm.causal_mask(S, S, device=x.device)
     ck, cv = cross_kv_all(cfg, params, enc_out)
 
@@ -125,10 +128,12 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos):
     kc, vc, pos_map = cache["k"], cache["v"], cache["pos_map"]
     pos = pos.long()
     slot = pos % kc.shape[2]
-    pos_map[torch.arange(B, device=pos.device), slot] = pos.to(torch.int32)
+    cm.write_slots(pos_map, pos.to(torch.int32), slot,
+                   torch.arange(B, device=pos.device))
     mask = cm.decode_mask(pos_map, pos)
     x = cm.embed(cfg, params, token) \
         + params["pos"][torch.clamp_max(pos, cfg.max_seq_len - 1)][:, None]
+    x = cm.constrain_batch(cfg, x)
     for i, lp in enumerate(layers(params, "dec_layers/")):
         x, _, _ = _dec_block(cfg, lp, x, mask, cache["ck"][i], cache["cv"][i],
                              self_kv=(kc[i], vc[i]), slot=slot)

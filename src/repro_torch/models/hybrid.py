@@ -107,7 +107,7 @@ def _rglru_seq(cfg, p, x, conv_state=None, h0=None):
     new_conv = full[:, full.shape[1] - (cw - 1):]
     log_a, gated = _rglru_gates(p, conv, u)
     h = _rglru_scan(log_a, gated, h0)
-    out = (y.float() * h).to(x.dtype) @ p["rglru/w_o"]
+    out = cm.settled((y.float() * h).to(x.dtype) @ p["rglru/w_o"])
     return out, new_conv, h[:, -1]
 
 
@@ -136,7 +136,7 @@ def _rglru_chunk(cfg, p, x, conv_state, h0, valid_len: int, use_kernels):
     else:
         h = _rglru_scan(log_a, gated, h0)
         h_last = h[:, -1]
-    out = (y.float() * h).to(x.dtype) @ p["rglru/w_o"]
+    out = cm.settled((y.float() * h).to(x.dtype) @ p["rglru/w_o"])
     return out, new_conv, h_last
 
 
@@ -149,7 +149,7 @@ def _rglru_step(cfg, p, x, conv_state, h):
         + p["rglru/conv_b"]
     log_a, gated = _rglru_gates(p, conv[:, None], u)
     h = torch.exp(log_a[:, 0]) * h + gated[:, 0]
-    out = (y[:, 0].float() * h).to(x.dtype) @ p["rglru/w_o"]
+    out = cm.settled((y[:, 0].float() * h).to(x.dtype) @ p["rglru/w_o"])
     return out[:, None], full[:, 1:], h
 
 
@@ -165,7 +165,7 @@ def _sub_seq(cfg, kind, p, x, cos, sin, rope_dim, mask):
     if kind == "attn":
         q, k, v = cm.attention_qkv(cfg, p, h_in, cos, sin, rope_dim)
         o = cm.sdpa(q, k, v, mask, cfg.logit_softcap)
-        x = x + o @ p["attn/wo"]
+        x = x + cm.settled(o @ p["attn/wo"])
         extra = (k, v)
     else:
         o, new_conv, h_last = _rglru_seq(cfg, p, h_in)
@@ -189,6 +189,7 @@ def forward_seq(cfg: ModelConfig, params, x, positions, *, window=None,
     recomputes each sub-layer's activations in the backward pass."""
     del window
     S = x.shape[1]
+    x = cm.constrain_batch(cfg, x)
     pat, n_groups, tail = _pattern(cfg)
     W = _window(cfg)
     cos, sin, rope_dim = cm.rope_for(cfg, positions)
@@ -198,6 +199,8 @@ def forward_seq(cfg: ModelConfig, params, x, positions, *, window=None,
         x, extra = cm.run_layer(
             remat, lambda x, p, kind=kind: _sub_seq(cfg, kind, p, x, cos, sin,
                                                     rope_dim, mask), x, p)
+        if sec == "groups" and i == len(pat) - 1:
+            x = cm.constrain_batch(cfg, x)
         extras.setdefault((sec, i), []).append(extra)
     logits = _final(cfg, params, x)
     if cache_capacity is None:
@@ -235,6 +238,7 @@ def decode_step(cfg: ModelConfig, params, cache, x, pos, *, window=None,
     ``active`` (a long index tensor) when given. Returns (logits, cache)."""
     del window
     B = x.shape[0]
+    x = cm.constrain_batch(cfg, x)
     pat, _, _ = _pattern(cfg)
     W = _window(cfg)
     attn_idx = [i for i, k in enumerate(pat) if k == "attn"]
@@ -243,7 +247,7 @@ def decode_step(cfg: ModelConfig, params, cache, x, pos, *, window=None,
     slot = pos % C
     bidx = torch.arange(B, device=x.device)
     pos_map = cache["pos_map"].clone()
-    pos_map[bidx, slot] = pos.to(torch.int32)
+    cm.write_slots(pos_map, pos.to(torch.int32), slot, bidx)
     mask = cm.decode_mask(pos_map, pos, window=W)
     cm.write_rows(cache["pos_map"], pos_map, active)
     rows = bidx if active is None else active
@@ -254,10 +258,14 @@ def decode_step(cfg: ModelConfig, params, cache, x, pos, *, window=None,
             q, k, v = cm.attention_qkv(cfg, p, h_in, cos, sin, rope_dim)
             ck = cache["groups"][f"k{i}"][g]                 # (B,C,Hk,D)
             cv = cache["groups"][f"v{i}"][g]
-            ck[rows, slot[rows]] = k[rows, 0]
-            cv[rows, slot[rows]] = v[rows, 0]
+            if active is None:
+                cm.write_slots(ck, k[:, 0], slot, bidx)
+                cm.write_slots(cv, v[:, 0], slot, bidx)
+            else:
+                ck[rows, slot[rows]] = k[rows, 0]
+                cv[rows, slot[rows]] = v[rows, 0]
             o = cm.sdpa(q, ck, cv, mask, cfg.logit_softcap)
-            x = x + o @ p["attn/wo"]
+            x = x + cm.settled(o @ p["attn/wo"])
         else:
             conv, h = _states(cache, sec, g, i)
             o, new_conv, new_h = _rglru_step(cfg, p, h_in, conv, h)
@@ -316,6 +324,7 @@ def prefill_chunk(cfg: ModelConfig, params, cache, x, offset: int, *,
     """
     del window
     B, Sq, _ = x.shape
+    x = cm.constrain_batch(cfg, x)
     offset, valid_len = int(offset), int(valid_len)
     pat, _, _ = _pattern(cfg)
     use_k = _use_kernels(cfg)
@@ -358,7 +367,7 @@ def prefill_chunk(cfg: ModelConfig, params, cache, x, offset: int, *,
             keys = torch.cat([ck, k], dim=1)
             vals = torch.cat([cv, v], dim=1)
             o = cm.sdpa(q, keys, vals, mask, cfg.logit_softcap)
-            x = x + o @ p["attn/wo"]
+            x = x + cm.settled(o @ p["attn/wo"])
             ck[:, has] = k[:, last_rel]
             cv[:, has] = v[:, last_rel]
         else:
@@ -369,6 +378,8 @@ def prefill_chunk(cfg: ModelConfig, params, cache, x, offset: int, *,
             h.copy_(new_h)
             x = x + o
         x = _mlp_residual(cfg, p, x)
+        if sec == "groups" and i == len(pat) - 1:
+            x = cm.constrain_batch(cfg, x)
     if attn_idx:
         cache["pos_map"][:, has] = new_pos
     return _final(cfg, params, x), cache

@@ -119,7 +119,7 @@ def _in_proj(cfg, lp, u):
 
 def _out(cfg, lp, u, y, z):
     y = cm.apply_norm(cfg, lp, "out_norm", y * F.silu(z))
-    return u + y @ lp["w_out"]
+    return u + cm.settled(y @ lp["w_out"])
 
 
 def _heads(cfg, xBC, B, S):
@@ -129,40 +129,68 @@ def _heads(cfg, xBC, B, S):
             Cm.reshape(B, S, G, N).float())
 
 
-def _block_seq(cfg, lp, u, conv_state=None, h0=None):
-    """Full-seq Mamba2 block. u (B,S,d). Returns (out, conv_state, h_final)."""
-    _, di, H, P, G, N = _dims(cfg)
-    B, S, _ = u.shape
+def _block_seq(cfg, lp, u):
+    """Full-seq Mamba2 block from zero state. u (B,S,d). Returns (out,
+    conv_state, h_final). On DTensors the conv and the scan run on each
+    rank's batch rows (``cm.on_rows``), replicated over the model axis."""
     z, xBC, dt = _in_proj(cfg, lp, u)
-    xBC, conv_state = _causal_conv(xBC, lp["conv_w"], lp["conv_b"], conv_state)
+    consts = (lp["conv_w"], lp["conv_b"], lp["dt_bias"], lp["A_log"],
+              lp["D"])
+    if isinstance(u, cm.DTensor):
+        y, conv_state, h_final = cm.on_rows(
+            lambda *a: _mix_seq(cfg, *a), (xBC, dt), consts, 3)
+    else:
+        y, conv_state, h_final = _mix_seq(cfg, xBC, dt, *consts)
+    return _out(cfg, lp, u, y.to(u.dtype), z), conv_state, h_final
+
+
+def _mix_seq(cfg, xBC, dt, conv_w, conv_b, dt_bias, A_log, D):
+    """The conv, the gates and the chunked scan of :func:`_block_seq`:
+    -> (y (B,S,di) float32, conv_state, h_final)."""
+    _, di, H, P, G, N = _dims(cfg)
+    B, S, _ = xBC.shape
+    xBC, conv_state = _causal_conv(xBC, conv_w, conv_b)
     xs, Bm, Cm = _heads(cfg, xBC, B, S)
-    dt = cm.softplus(dt.float() + lp["dt_bias"])
-    A = -torch.exp(lp["A_log"])
-    y, h_final = ssd_chunked(xs, dt, A, Bm, Cm, lp["D"], cfg.ssm.chunk, h0)
-    y = y.reshape(B, S, di).to(u.dtype)
-    return _out(cfg, lp, u, y, z), conv_state, h_final
+    dt = cm.softplus(dt.float() + dt_bias)
+    y, h_final = ssd_chunked(xs, dt, -torch.exp(A_log), Bm, Cm, D,
+                             cfg.ssm.chunk)
+    return y.reshape(B, S, di), conv_state, h_final
 
 
 def _block_step(cfg, lp, u, conv_state, h):
     """Single-token step. u (B,1,d); conv_state (B,W-1,Ch); h (B,H,P,N).
-    Returns (out, new_conv, new_h) as new tensors."""
-    _, di, H, P, G, N = _dims(cfg)
-    B = u.shape[0]
+    Returns (out, new_conv, new_h) as new tensors. On DTensors the conv
+    and the recurrence run on each rank's batch rows (``cm.on_rows``)."""
     z, xBC, dt = _in_proj(cfg, lp, u)
+    consts = (lp["conv_w"], lp["conv_b"], lp["dt_bias"], lp["A_log"],
+              lp["D"])
+    if isinstance(u, cm.DTensor):
+        y, new_conv, h = cm.on_rows(
+            lambda *a: _mix_step(cfg, *a), (xBC, dt, conv_state, h),
+            consts, 3)
+    else:
+        y, new_conv, h = _mix_step(cfg, xBC, dt, conv_state, h, *consts)
+    return _out(cfg, lp, u, y.to(u.dtype), z), new_conv, h
+
+
+def _mix_step(cfg, xBC, dt, conv_state, h, conv_w, conv_b, dt_bias, A_log,
+              D):
+    """The conv and the one-step recurrence of :func:`_block_step`:
+    -> (y (B,1,di) float32, new_conv, new_h)."""
+    _, di, H, P, G, N = _dims(cfg)
+    B = xBC.shape[0]
     full = torch.cat([conv_state, xBC], dim=1)                 # (B,W,Ch)
-    out = torch.einsum("bwc,wc->bc", full, lp["conv_w"]) + lp["conv_b"]
+    out = torch.einsum("bwc,wc->bc", full, conv_w) + conv_b
     xBC = F.silu(out)
     xs, Bm, Cm = torch.split(xBC, [di, G * N, G * N], dim=-1)
     xs = xs.reshape(B, H, P).float()
     Bm = torch.repeat_interleave(Bm.reshape(B, G, N), H // G, dim=1).float()
     Cm = torch.repeat_interleave(Cm.reshape(B, G, N), H // G, dim=1).float()
-    dt = cm.softplus(dt[:, 0].float() + lp["dt_bias"])         # (B,H)
-    A = -torch.exp(lp["A_log"])
-    a = torch.exp(dt * A)                                      # (B,H)
+    dt = cm.softplus(dt[:, 0].float() + dt_bias)               # (B,H)
+    a = torch.exp(dt * -torch.exp(A_log))                      # (B,H)
     h = a[:, :, None, None] * h + torch.einsum("bh,bhn,bhp->bhpn", dt, Bm, xs)
-    y = torch.einsum("bhn,bhpn->bhp", Cm, h) + lp["D"][None, :, None] * xs
-    y = y.reshape(B, 1, di).to(u.dtype)
-    return _out(cfg, lp, u, y, z), full[:, 1:], h
+    y = torch.einsum("bhn,bhpn->bhp", Cm, h) + D[None, :, None] * xs
+    return y.reshape(B, 1, di), full[:, 1:], h
 
 
 def _block_chunk(cfg, lp, u, conv_state, h0, valid_len: int):
@@ -233,10 +261,12 @@ def prefill_chunk(cfg: ModelConfig, params, cache, x, offset=None, *,
     the recurrent state carries all positional context. Returns (logits,
     cache)."""
     del offset, window
+    x = cm.constrain_batch(cfg, x)
     conv, ssm = cache["conv"], cache["ssm"]
     for i in range(cfg.n_layers):
         x, new_conv, h = _block_chunk(cfg, layer(params, i), x, conv[i],
                                       ssm[i], int(valid_len))
+        x = cm.constrain_batch(cfg, x)
         conv[i] = new_conv
         ssm[i] = h
     return _final(cfg, params, x), cache
@@ -248,10 +278,12 @@ def forward_seq(cfg: ModelConfig, params, x, positions=None, *,
     """x (B,S,d). Returns (logits, cache|None); the cache is new.
     ``remat`` recomputes each layer's activations in the backward pass."""
     del positions, window
+    x = cm.constrain_batch(cfg, x)
     convs, hs = [], []
     for lp in layers(params):
         x, conv_state, h = cm.run_layer(
             remat, lambda x, lp: _block_seq(cfg, lp, x), x, lp)
+        x = cm.constrain_batch(cfg, x)
         convs.append(conv_state)
         hs.append(h)
     cache = None
@@ -267,6 +299,7 @@ def decode_step(cfg: ModelConfig, params, cache, x, pos=None, *,
     tensor) when given, so the other rows keep theirs exactly. Returns
     (logits (B,1,V), cache)."""
     del pos, window
+    x = cm.constrain_batch(cfg, x)
     conv, ssm = cache["conv"], cache["ssm"]
     for i in range(cfg.n_layers):
         x, new_conv, h = _block_step(cfg, layer(params, i), x, conv[i],

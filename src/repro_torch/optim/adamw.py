@@ -25,7 +25,8 @@ class AdamWState(NamedTuple):
 
 def adamw_init(params: Params) -> AdamWState:
     def f32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # zeros_like: a DTensor parameter's moments are placed as it is
+        return torch.zeros_like(p, dtype=torch.float32)
     return AdamWState(step=torch.zeros((), dtype=torch.int32),
                       mu={k: f32(p) for k, p in params.items()},
                       nu={k: f32(p) for k, p in params.items()})
@@ -37,10 +38,12 @@ def adamw_update(params: Params, grads: Params, state: AdamWState, *,
     """One step. Returns (new_params, new_state)."""
     step = state.step + 1
     t = step.float()
-    # the bias corrections in float32, as the reference computes them
+    # the bias corrections in float32, as the reference computes them; 0-d
+    # host tensors, read by no host sync (the dry-run traces this step on
+    # fake tensors), that the card divides by as it does by Python floats
     f32 = torch.float32
-    bc1 = float(1.0 - torch.tensor(b1, dtype=f32) ** t)
-    bc2 = float(1.0 - torch.tensor(b2, dtype=f32) ** t)
+    bc1 = 1.0 - torch.tensor(b1, dtype=f32) ** t
+    bc2 = 1.0 - torch.tensor(b2, dtype=f32) ** t
     new_p, new_m, new_v = {}, {}, {}
     for k, p in params.items():
         g32 = grads[k].float()

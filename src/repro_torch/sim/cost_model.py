@@ -81,14 +81,15 @@ class InstanceProfile:
     # torch.cuda.get_device_properties(0).total_memory
     hbm_bytes: int = 85_017_493_504
     # migrations moved as export_state / import_state move them (device to
-    # pageable host memory, then back): least-squares slope of the round
+    # pinned host memory, then back): least-squares slope of the round
     # trips of qwen3 (13.4, 66.4, 117.4 MB), mamba2 (51.0 MB) and
-    # recurrentgemma (13.7 MB) payloads above link_latency. A process
-    # that has not served yet copies device to host ~3.5x slower, into
-    # host pages it touches for the first time
-    link_bw: float = 3.32e9
-    # the round trip of a 114,688-byte payload (one qwen3 token)
-    link_latency: float = 3.7e-4
+    # recurrentgemma (13.7 MB) payloads above link_latency; the median of
+    # chip_smoke.py's sim phase in three runs on an H100 80GB HBM3 at
+    # 700 W (2.40e10, 2.52e10, 2.41e10; PERF.md section 5)
+    link_bw: float = 2.41e10
+    # the round trip of a 114,688-byte payload (one qwen3 token): the same
+    # three runs' median (0.281, 0.327, 0.189 ms)
+    link_latency: float = 2.81e-4
 
     @property
     def flops(self) -> float:

@@ -224,6 +224,57 @@ def test_slot_kv_state_bytes_matches_jax(setup):
     assert inst.kv.state_bytes(3) == sum(p.nbytes for p in payload)
 
 
+def test_migration_payload_pins_only_card_slabs(monkeypatch):
+    """Migration payloads leave the slabs through ``host_copy``: pinned
+    host memory when the slab is on the card, ordinary memory for CPU
+    slabs. On the CPU, ``extract_state`` still gives each slot's bytes as
+    a copy of their own (no view of the slab) and ``state_bytes`` counts
+    them, for the dense and the recurrent containers."""
+    from repro_torch.engine import state_slots
+    from repro_torch.engine.kv_slots import SlotKVCache
+    calls = []
+
+    class Card:                       # what host_copy reads of a card tensor
+        shape, dtype, is_cuda = (2, 3), torch.float32, True
+
+    class Host:
+        def copy_(self, src):
+            return self
+
+    def empty(shape, dtype=None, pin_memory=False):
+        calls.append(pin_memory)
+        return Host()
+
+    with monkeypatch.context() as m:
+        m.setattr(state_slots.torch, "empty", empty)
+        state_slots.host_copy(Card())
+        state_slots.host_copy(torch.zeros(2, 3))
+    assert calls == [True, False]
+
+    g = torch.Generator().manual_seed(3)
+    kv = SlotKVCache(2, 3, 16, 2, 4, device="cpu")
+    cfg = get_smoke_config("mamba2-370m")
+    ssm = state_slots.make_state_slots(cfg, 3, 16, "cpu")
+    for slots in (kv, ssm):
+        slots.alloc(5)
+        slots.alloc(6)
+        slots.len_of[6] = 9
+        for a, _ in (slots._leaves() if slots is ssm else
+                     ((slots.k, 1), (slots.v, 1))):
+            a.copy_(torch.randn(a.shape, generator=g).to(a.dtype))
+        payload, n = slots.extract_state(6)
+        assert n == 9
+        assert slots.state_bytes(6) == sum(p.nbytes for p in payload)
+        s = slots.slot_of[6]
+        rows = ([slots.k[:, s, :9], slots.v[:, s, :9]] if slots is kv else
+                [a.select(axis, s) for a, axis in slots._leaves()])
+        for p, row in zip(payload, rows):
+            assert not p.is_pinned() and p.is_contiguous()
+            assert torch.equal(p, row)
+            p.zero_()                 # its own bytes: the slab keeps its
+        assert any(row.abs().sum() > 0 for row in rows)
+
+
 def test_export_import_kv_round_trip(setup):
     """``export_kv``/``import_kv`` (the dense-layout compatibility pair):
     the sampling state rides along and the importer continues the sampled
@@ -274,6 +325,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import repro_torch.models.api, repro_torch.models.moe\n"
         "import repro_torch.models.encdec, repro_torch.launch.train\n"
         "import repro_torch.optim, repro_torch.checkpoint, repro_torch.data\n"
+        "import repro_torch.distributed, repro_torch.distributed.steps\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
         "repro_torch.launch.serve.main(['--mode', 'sim', '--arch',"
         " 'olmoe-1b-7b', '--trace', 'spike', '--rate', '1',"
         " '--duration', '10'])\n"

@@ -242,11 +242,32 @@ def test_moe_tied_router_picks_lowest_experts(arch):
     moe_pair(jcfg, jp, tcfg, tp, x)
 
 
-def test_moe_refuses_expert_sharding():
-    _, _, tcfg, tp, x = moe_inputs("olmoe-1b-7b", seed=5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        moe.moe_ffn(tcfg.replace(moe_ep_axis="model"), tp,
-                    torch.from_numpy(x))
+def test_moe_expert_parallel_matches_jax():
+    """moe_ffn with expert parallelism (moe_ep_axis "model", two groups)
+    on DTensors over a 1x1 gloo mesh: the group -> expert reshard, the
+    experts' products on their shards and the reshard back give JAX's
+    moe_ffn of the same groups (the 8-rank case is
+    test_torch_distributed's)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import destroy, make_local_mesh
+    jcfg, jp, tcfg, tp, x = moe_inputs("olmoe-1b-7b", seed=5)
+    ep = tcfg.replace(moe_ep_axis="model", moe_groups=2,
+                      act_batch_axes=("data",))
+    mesh = make_local_mesh("cpu")
+    try:
+        dp = {k: shd.distribute(v, shd.param_spec(f"layers/moe/{k}",
+                                                  v.shape, 1), mesh)
+              for k, v in tp.items()}
+        dx = shd.distribute(torch.from_numpy(x), ("data", None, None), mesh)
+        with implicit_replication():
+            ty, taux = moe.moe_ffn(ep, dp, dx)
+        ty, taux = ty.full_tensor(), taux.full_tensor()
+    finally:
+        destroy()
+    jy, jaux = jmoe.moe_ffn(jcfg.replace(moe_groups=2), jp, jnp.asarray(x))
+    close(ty, jy)
+    close(taux, jaux, rtol=1e-5, atol=1e-6)
 
 
 def test_encdec_prefill_needs_whole_prefix():
