@@ -19,6 +19,22 @@ the verify on flash_prefill_dyn at k+1 rows) — each read the same way, with
 the number of its streams equal to the fused ones reported; and once more
 in float32 in all three modes, whose streams must be equal id for id.
 
+Then the runtime phase drives Arrow's runtime mechanisms at full width
+(seed-0 weights, on the kernels). For qwen3-1.7b in float32 and then bf16,
+bench_chaos's engine leg with transfer drops, netslow and a crash that is
+sure to fire (the crash and a retry asserted; in float32 every stream
+equal to its sequential reference, in bf16 the equal ones counted); in
+float32 also the corrupt-copy path (a flipped byte refused before a slot
+is taken, the pristine pinned payload landing), deflection at its state
+barrier and multi-turn prefix reuse (placements, counters and hits equal
+to the port's simulator's; streams equal with the mechanism on and off),
+SLO-aware preemption at a blocked memory gate, and an arrow_elastic run
+that spawns an instance mid-serve (its wall time printed). Then
+bench_ssm's legs for mamba2-370m and qwen3-1.7b in bf16 and float32:
+forced migration against colocated and a replay (asserted identical in
+float32), Mamba-2's migration bytes constant over context and qwen3's
+proportional to it. The phase's launch counts join the kernels line.
+
 A last phase measures the constants of the simulator's cost model on the
 card, in this process after the engine paths (a bf16 GEMM at
 qwen3-1.7b's MLP shapes, a 1 GiB device copy, the migration payloads'
@@ -760,6 +776,413 @@ def profile_round(cluster, cfg, tags):
                      "idle_share": 1.0 - busy_ms / (wall * 1e3),
                      "kernels_ms_calls": ours,
                      "top": [[k[:80], ms, n] for k, ms, n in rows[:10]]}})
+
+
+# ------------------------------------------------------------- runtime
+
+
+RUNTIME_PLAN = ("droptransfer@0.05:p=0.7,duration=1;"
+                "netslow@0.2:factor=3,duration=1;crash@0.1:target=1")
+SSM_LEG = dict(rate=1.5, duration=4.0)   # bench_ssm's traffic, a 4 s trace
+MAMBA2_BF16_BYTES = 50_995_200       # a request's state at full width
+
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def summary(label: str, report) -> None:
+    log(f"[runtime {label}] {report.summary()}")
+
+
+def record_placements(cluster):
+    """Wrap the policy's place_prefill to log (rid, instance, deflected)."""
+    orig = cluster.policy.place_prefill
+    rec = []
+
+    def place(req, now, prefix_hits=None):
+        iid, hit, deflected = orig(req, now, prefix_hits=prefix_hits)
+        rec.append((req.rid, iid, deflected))
+        return iid, hit, deflected
+
+    cluster.policy.place_prefill = place
+    return rec
+
+
+def check_corrupt_wire(cfg, params) -> dict:
+    """The corrupt-copy path on the card: an exported payload sits in
+    pinned host memory, a clone with one flipped byte fails the checksum
+    (the importer refuses it before taking a slot), and the pristine
+    payload then lands."""
+    from repro_torch.engine import EngineInstance
+    from repro_torch.engine.instance import CorruptPayload, state_checksum
+    a = EngineInstance(0, cfg, params, n_slots=2, capacity=128, device="cuda")
+    b = EngineInstance(1, cfg, params, n_slots=2, capacity=128, device="cuda")
+    prompt = np.arange(1, 25, dtype=np.int32)
+    a.run_prefill(7, prompt)
+    a.local.start_local_decode(7, len(prompt), 4)
+    a.run_decode_iteration([7])
+    payload, L, last, gen = a.export_state(7)
+    good = state_checksum(payload)
+    wire = [p.clone() for p in payload]
+    wire[0].view(torch.uint8).view(-1)[0] ^= 0xFF
+    refused = False
+    try:
+        b.import_state(7, wire, L, last, list(gen), checksum=good)
+    except CorruptPayload:
+        refused = 7 not in b.kv.slot_of
+    ok = b.import_state(7, payload, L, last, list(gen), checksum=good)
+    out = {"pinned": all(p.is_pinned() for p in payload),
+           "corrupt_crc_differs": state_checksum(wire) != good,
+           "refused_before_alloc": refused, "pristine_landed": bool(ok)}
+    log({"corrupt_wire": out})
+    if not all(out.values()):
+        raise AssertionError(f"corrupt-copy path: {out}")
+    return out
+
+
+def runtime_chaos(cfg, params) -> dict:
+    """bench_chaos's engine leg at full width: drops, netslow and a crash of
+    decode instance 1 at 0.1 s (a request due at 0.5 s keeps the cluster
+    serving past it on a fast card), under HealthConfig(xfer_backoff_s=
+    0.01). The crash must fire and a transfer must be retried; in float32
+    every stream must equal its sequential reference, in bf16 the number
+    of equal streams is reported."""
+    from repro_torch.bench import bench_chaos
+    counts, report, _ = bench_chaos.run_engine_leg(
+        cfg, params, "cuda", plan=RUNTIME_PLAN, late=(0.5, 4))
+    summary(f"chaos {cfg.dtype}", report)
+    n = counts["n_requests"]
+    counts["streams_equal"] = f"{n - counts['mismatched_streams']}/{n}"
+    log({"runtime_chaos": {"dtype": cfg.dtype, **counts}})
+    if counts["crashes"] != 1 or counts["xfer_retries"] < 1:
+        raise AssertionError(f"chaos plan did not land: {counts}")
+    if cfg.dtype == "float32" and counts["mismatched_streams"]:
+        raise AssertionError(f"float32 streams left the reference: {counts}")
+    return counts
+
+
+def runtime_deflection(cfg, params) -> None:
+    """tests/test_scheduler.py's barrier: 1000 s of Eq.(2) backlog charged
+    to the prefill instance before a burst of 6; the engine's deflected
+    placements and counters must equal the port simulator's, and the
+    streams must be the same with deflection on and off (float32)."""
+    from repro_torch.core import (SLO, AutoScalerConfig, DeflectionConfig,
+                                  Request)
+    from repro_torch.engine import ArrowEngineCluster
+    from repro_torch.sim import Simulator
+    rng = np.random.default_rng(3)
+    prompts = {i: rng.integers(1, cfg.vocab_size, size=24).astype(np.int32)
+               for i in range(6)}
+    pinned = AutoScalerConfig(min_instances=2, max_instances=2)
+
+    def run(system, with_prompts):
+        system.policy.prefill_ready_at[0] = 1000.0
+        rec = record_placements(system)
+        hs = [system.submit(Request(rid=i, arrival=0.0, input_len=24,
+                                    output_len=6),
+                            **({"prompt": prompts[i]} if with_prompts
+                               else {})) for i in range(6)]
+        rep = (system.drain(timeout=300.0) if with_prompts
+               else system.drain())
+        return rec, rep, [list(h.tokens) for h in hs]
+
+    rec_sim, rep_sim, _ = run(Simulator(
+        cfg, n_instances=2, n_prefill=1, policy="arrow_deflect",
+        slo=SLO(30.0, 10.0), autoscaler_cfg=pinned,
+        deflection=DeflectionConfig(ratio=0.25)), False)
+    out = {}
+    for ratio in (0.25, 0.0):
+        eng = ArrowEngineCluster(
+            cfg, n_instances=2, n_prefill=1, n_slots=4, capacity=128,
+            slo=SLO(30.0, 10.0), params=params, policy="arrow_deflect",
+            autoscaler_cfg=pinned, deflection=DeflectionConfig(ratio=ratio),
+            device="cuda")
+        out[ratio] = run(eng, True)
+        summary(f"deflection ratio={ratio}", out[ratio][1])
+        del eng
+    rec_on, rep_on, streams_on = out[0.25]
+    keys = ("requests_deflected", "tokens_deflected", "chunks_executed",
+            "chunk_tokens_executed")
+    res = {"placements_sim": rec_sim, "placements_engine": rec_on,
+           "counters_sim": {k: rep_sim.deflection[k] for k in keys},
+           "counters_engine": {k: rep_on.deflection.get(k) for k in keys},
+           "streams_equal_on_off": streams_on == out[0.0][2]}
+    log({"runtime_deflection": res})
+    if not any(d for _, _, d in rec_sim) or rec_sim != rec_on \
+            or res["counters_sim"] != res["counters_engine"] \
+            or not res["streams_equal_on_off"] \
+            or any(d for _, _, d in out[0.0][0]):
+        raise AssertionError(f"deflection parity failed: {res}")
+
+
+def runtime_prefix(cfg, params) -> None:
+    """tests/test_prefix.py's tiny_multiturn (two sessions, 3 + 2 turns):
+    the engine's prefix hits must equal the port simulator's (3), and the
+    streams must be the same with the cache on and off (float32)."""
+    from repro_torch.core import SLO, Request
+    from repro_torch.core.serving import replay_trace
+    from repro_torch.engine import ArrowEngineCluster
+    from repro_torch.sim import Simulator
+    trace = [Request(0, 0.00, 40, 3, session_id=0),
+             Request(1, 0.05, 36, 2, session_id=1),
+             Request(2, 0.10, 81, 3, session_id=0, parent_rid=0,
+                     history_len=43),
+             Request(3, 0.15, 68, 2, session_id=1, parent_rid=1,
+                     history_len=38),
+             Request(4, 0.20, 104, 2, session_id=0, parent_rid=2,
+                     history_len=84)]
+    sim = Simulator(cfg, n_instances=2, n_prefill=1, slo=SLO(5.0, 2.0),
+                    prefix_cache=True)
+    replay_trace(sim, trace)
+    hits_sim = sim.drain().prefix["hits"]
+    streams, hits = {}, None
+    for on in (False, True):
+        eng = ArrowEngineCluster(cfg, n_instances=2, n_prefill=1, n_slots=4,
+                                 capacity=128, slo=SLO(5.0, 2.0),
+                                 params=params, prefix_cache=on,
+                                 device="cuda")
+        hs = replay_trace(eng, trace)
+        rep = eng.drain(timeout=300.0)
+        summary(f"prefix cache={on}", rep)
+        streams[on] = [[int(t) for t in h.tokens] for h in hs]
+        if on:
+            hits = rep.prefix["hits"]
+        del eng
+    res = {"hits_sim": hits_sim, "hits_engine": hits,
+           "streams_equal_on_off": streams[True] == streams[False]}
+    log({"runtime_prefix": res})
+    if not (hits == hits_sim == 3 and res["streams_equal_on_off"]):
+        raise AssertionError(f"prefix parity failed: {res}")
+
+
+def runtime_preemption(cfg, params) -> None:
+    """tests/test_health.py's blocked memory gate: rid 2's evacuation finds
+    instance 1 one token short, the long resident (rid 1) is preempted and
+    re-prefilled; every stream equals its sequential reference (float32)."""
+    from repro_torch.bench.bench_chaos import reference_streams
+    from repro_torch.core import SLO, HealthConfig, Request
+    from repro_torch.engine import ArrowEngineCluster
+    eng = ArrowEngineCluster(cfg, n_instances=3, n_prefill=1, n_slots=4,
+                             capacity=128, slo=SLO(5.0, 2.0), params=params,
+                             health=HealthConfig(preemption=True),
+                             device="cuda")
+    rng = np.random.default_rng(11)
+    prompts = {i: rng.integers(1, cfg.vocab_size, size=24).astype(np.int32)
+               for i in range(3)}
+    lens = {0: 8, 1: 32, 2: 8}
+
+    def submit(i):
+        return eng.submit(Request(rid=i, arrival=0.0, input_len=24,
+                                  output_len=lens[i]), prompt=prompts[i])
+
+    def until(cond, what):
+        for _ in range(100000):
+            if cond():
+                return
+            if not eng.step():
+                raise AssertionError(f"drained before {what}")
+
+    hs = [submit(0), submit(1)]
+    until(lambda: all(h.req.state.name == "DECODING"
+                      and h.req.decode_instance == 1
+                      and 2 <= len(h.tokens) < h.req.output_len
+                      for h in hs), "the two-resident barrier")
+    eng.collect_stats(eng.clock.now())
+    hs.append(submit(2))
+    until(lambda: hs[2].req.state.name == "DECODING"
+          and hs[2].req.decode_instance == 2 and len(hs[2].tokens) >= 2,
+          "rid 2 decoding on instance 2")
+    loc1 = eng.local_of(1)
+    real = loc1.kv_capacity
+    loc1.kv_capacity = loc1.kv_used + \
+        eng.local_of(2).decode_running[2].context_len - 1
+    eng.begin_retire(2, eng.clock.now())
+    loc1.kv_capacity = real
+    rep = eng.drain(timeout=300.0)
+    summary("preemption", rep)
+    ref = reference_streams(cfg, params, prompts, lens, "cuda")
+    res = {"victims": sorted(h.rid for h in hs if h.req.recoveries),
+           "preemptions": rep.health.get("preemptions"),
+           "streams_equal": sum(ref[h.rid] == [int(t) for t in h.tokens]
+                                for h in hs)}
+    log({"runtime_preemption": res})
+    if res != {"victims": [1], "preemptions": 1, "streams_equal": 3}:
+        raise AssertionError(f"preemption failed: {res}")
+
+
+def runtime_elastic(cfg, params) -> None:
+    """arrow_elastic at the engine's full shape (8 slots x 1024): a burst
+    of 8 prompts of 900-999 tokens; once one of them decodes on instance 1
+    its running tokens (~960 of 8,192) put the autoscaler's decode
+    pressure over its threshold (set to 0.1, as the card prefills faster
+    than it decodes one request here), so an instance is spawned (its
+    slabs allocated) mid-serve; 4 more requests arrive at 2 s. Asserts a
+    scale-up and every stream equal to its sequential reference (float32);
+    reports the spawn's wall time, where each request ran, and the TTFT
+    predictor fitted from the card's profile."""
+    from repro_torch.bench.bench_chaos import reference_streams
+    from repro_torch.core import SLO, AutoScalerConfig, Request
+    from repro_torch.engine import ArrowEngineCluster
+    eng = ArrowEngineCluster(
+        cfg, n_instances=2, n_prefill=1, n_slots=8, capacity=1024,
+        chunk_tokens=256, slo=SLO(5.0, 0.5), params=params,
+        policy="arrow_elastic", device="cuda",
+        autoscaler_cfg=AutoScalerConfig(min_instances=2, max_instances=3,
+                                        decode_up=0.1, up_patience=1))
+    spawn_s = []
+    create = eng._create_instance
+
+    def timed_create(iid):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = create(iid)
+        torch.cuda.synchronize()
+        spawn_s.append(time.perf_counter() - t0)
+        return out
+
+    eng._create_instance = timed_create
+    rng = np.random.default_rng(13)
+    prompts = {i: rng.integers(1, cfg.vocab_size, size=int(n)).astype(
+        np.int32) for i, n in enumerate(rng.integers(900, 1000, size=12))}
+    hs = [eng.submit(Request(rid=i, arrival=0.0 if i < 8 else 2.0,
+                             input_len=len(p), output_len=16), prompt=p)
+          for i, p in prompts.items()]
+    rep = eng.drain(timeout=300.0)
+    summary("elastic", rep)
+    ref = reference_streams(cfg, params, prompts, {i: 16 for i in prompts},
+                            "cuda", capacity=1024)
+    res = {"scale_ups": rep.scaling.get("scale_ups"),
+           "scale_downs": rep.scaling.get("scale_downs"),
+           "events": [(e.kind, e.instance, e.pool.value, e.t, e.reason)
+                      for e in eng.autoscaler.events],
+           "predictor": [float(c) for c in eng.predictor.coeffs],
+           "predicted_prefill_s": {n: eng.predictor.predict(n)
+                                   for n in (128, 512, 1000)},
+           "spawn_s": spawn_s, "instances": sorted(eng.instances),
+           "placements": [(h.req.prefill_instance, h.req.decode_instance)
+                          for h in hs],
+           "finished": rep.n_finished,
+           "streams_equal": sum(ref[h.rid] == [int(t) for t in h.tokens]
+                                for h in hs)}
+    log({"runtime_elastic": res})
+    if not (res["scale_ups"] and res["scale_ups"] >= 1 and spawn_s
+            and res["finished"] == 12):
+        raise AssertionError(f"elastic run did not scale up: {res}")
+    if cfg.dtype == "float32" and res["streams_equal"] != 12:
+        raise AssertionError(f"float32 streams left the reference: {res}")
+
+
+def runtime_ssm_legs(arch: str, dtype: str) -> None:
+    """bench_ssm's legs at the arch's full width: forced migration
+    (``arrow``) against ``colocated`` and, in float32, a replay; both
+    asserted identical in float32 (in bf16 the number of streams equal to
+    the colocated ones is reported). Mamba-2's
+    migration bytes must be constant over context, qwen3's proportional
+    (in bf16 exactly 50,995,200 B a request and 114,688 B a token)."""
+    from repro_torch.bench import bench_ssm
+    from repro_torch.configs import get_config
+    from repro_torch.weights import init_params, torch_dtype
+    cfg = get_config(arch).replace(attn_impl="hopper", dtype=dtype)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    runs = {}
+    # the replay's identity is asserted in float32 only, so bf16 skips it
+    policies = ("arrow",) if cfg.family != "ssm" else \
+        ("arrow", "colocated") + (("arrow",) if dtype == "float32" else ())
+    for i, policy in enumerate(policies):
+        t0 = time.perf_counter()
+        rep, mlog, streams = bench_ssm.serve(cfg, policy, device="cuda",
+                                             params=params, **SSM_LEG)
+        summary(f"ssm-leg {arch} {dtype} {policy}", rep)
+        runs[i] = (mlog, streams, time.perf_counter() - t0)
+    mlog, streams, _ = runs[0]
+    size = {m["bytes"] for m in mlog}
+    per_tok = {m["bytes"] / m["ctx_tokens"] for m in mlog}
+    res = {"arch": arch, "dtype": dtype, "migrations": len(mlog),
+           "ctx": sorted({m["ctx_tokens"] for m in mlog}),
+           "bytes": sorted(size), "bytes_per_token": sorted(per_tok),
+           "serve_s": [r[2] for r in runs.values()]}
+    if cfg.family == "ssm":
+        n = len(streams)
+        res["colocated_equal"] = sum(streams[r] == runs[1][1].get(r)
+                                     for r in streams)
+        if 2 in runs:
+            res["replay_equal"] = sum(streams[r] == runs[2][1].get(r)
+                                      for r in streams)
+        res["streams"] = n
+        if runs[1][0]:
+            raise AssertionError("colocated run migrated")
+    log({"runtime_ssm_leg": res})
+    if not mlog or len(res["ctx"]) < 2:
+        raise AssertionError(f"ssm leg migrated too little: {res}")
+    if cfg.family == "ssm":
+        if len(size) != 1 or (dtype == "bfloat16"
+                              and size != {MAMBA2_BF16_BYTES}):
+            raise AssertionError(f"mamba2 migration bytes: {res}")
+        if dtype == "float32" and (res["colocated_equal"] != n
+                                   or res["replay_equal"] != n):
+            raise AssertionError(f"float32 ssm streams differ: {res}")
+    else:
+        # K and V, every layer's kv heads, per context token
+        want = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim_ * \
+            torch.empty((), dtype=torch_dtype(cfg.dtype)).element_size()
+        if per_tok != {float(want)}:
+            raise AssertionError(f"qwen3 migration bytes (want {want} a "
+                                 f"token): {res}")
+    del params
+    free_card()
+
+
+def runtime_phase(smi: str) -> dict:
+    """Arrow's runtime mechanisms on the card at full published width
+    (random weights from seed 0, on the kernels): for qwen3-1.7b in
+    float32 (TF32 off) then bf16 the chaos engine leg; in float32 the
+    corrupt-copy path, deflection at its barrier, prefix reuse,
+    preemption and an elastic scale-up; then bench_ssm's legs for
+    mamba2-370m and qwen3-1.7b in bf16 and float32. Every launch count is
+    set to 0 before and read after; each kernel of the two paths must have
+    run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (flash_chunk_op, flash_seq_op,
+                                     launch_counts, paged_attention_op,
+                                     reset_launch_counts, ssd_scan_op)
+    from repro_torch.weights import init_params
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    chaos = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config("qwen3-1.7b").replace(attn_impl="hopper",
+                                               dtype=dtype)
+        params = init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        chaos[dtype] = runtime_chaos(cfg, params)
+        if dtype == "float32":
+            check_corrupt_wire(cfg, params)
+            runtime_deflection(cfg, params)
+            runtime_prefix(cfg, params)
+            runtime_preemption(cfg, params)
+            runtime_elastic(cfg, params)
+        del params
+        free_card()
+    for dtype in ("bfloat16", "float32"):
+        for arch in ("mamba2-370m", "qwen3-1.7b"):
+            runtime_ssm_legs(arch, dtype)
+    counts = launch_counts()
+    wall = time.perf_counter() - t0
+    log({"runtime_phase": {"wall_s": wall, "card": smi,
+                           "launches": counts,
+                           "chaos_streams_equal": {
+                               k: v["streams_equal"]
+                               for k, v in chaos.items()}}})
+    idle = [w.__name__ for w in (flash_seq_op, flash_chunk_op,
+                                 paged_attention_op, ssd_scan_op)
+            if counts[w.__name__] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched in the runtime "
+                             f"phase: {idle}")
+    return counts
 
 
 # ----------------------------------------------------------------- sim
@@ -1764,6 +2187,9 @@ def main() -> int:
         if cfg.family == "dense":
             check_stream_identity(cfg, expect)
 
+    runtime_counts = runtime_phase(smi)
+    for w in counts:
+        counts[w] += runtime_counts[w]
     sim_phase(obs, smi, link_fresh)
     zoo_counts = zoo_phase(smi)
     for w in ("flash_seq_op", "paged_attention_op"):

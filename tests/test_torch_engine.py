@@ -327,6 +327,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import repro_torch.optim, repro_torch.checkpoint, repro_torch.data\n"
         "import repro_torch.distributed, repro_torch.distributed.steps\n"
         "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
+        "import repro_torch.bench.bench_ssm, repro_torch.bench.bench_chaos\n"
+        "import repro_torch.examples.quickstart\n"
+        "import repro_torch.examples.serve_arrow\n"
+        "import repro_torch.examples.simulate_cluster\n"
+        "import repro_torch.examples.train_100m\n"
         "repro_torch.launch.serve.main(['--mode', 'sim', '--arch',"
         " 'olmoe-1b-7b', '--trace', 'spike', '--rate', '1',"
         " '--duration', '10'])\n"
