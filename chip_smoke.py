@@ -30,7 +30,8 @@ barrier and multi-turn prefix reuse (placements, counters and hits equal
 to the port's simulator's; streams equal with the mechanism on and off),
 SLO-aware preemption at a blocked memory gate, and an arrow_elastic run
 that spawns an instance mid-serve (its wall time printed). Then
-bench_ssm's legs for mamba2-370m and qwen3-1.7b in bf16 and float32:
+bench_ssm's legs for mamba2-370m and qwen3-1.7b (half their layers) in bf16
+and float32:
 forced migration against colocated and a replay (asserted identical in
 float32), Mamba-2's migration bytes constant over context and qwen3's
 proportional to it. The phase's launch counts join the kernels line.
@@ -70,6 +71,15 @@ DTensor wrappers; then ``repro_torch.launch.dryrun`` in subprocesses off
 the card (qwen3-1.7b x train_4k, prefill_32k, decode_32k; olmoe-1b-7b x
 train_4k with expert parallelism), each record printed.
 
+Last, the bench phase: ``repro_torch.bench.bench_kernels`` times the five
+kernels on the card at the JAX bench's shapes and at the main paths',
+each held to its plain version (its launches join the kernels line, and
+its times at the main paths' shapes, the cases the kernel checks began
+with, are the line's), and
+``repro_torch.bench.roofline`` reads the records the dry-runs just wrote:
+decode_32k must not be compute-bound. Every phase logs its wall time as it
+ends; a line of every phase's time and the total precedes the result line.
+
 Needs one CUDA device (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc. TF32 is switched off for float32 matmuls and
 convolutions, so float32 comparisons are full precision. Exits non-zero on
@@ -77,6 +87,7 @@ any failure; the last line of standard output is the result JSON.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -90,133 +101,81 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-BF16_TOL = 2e-2          # kernel vs plain, bf16 inputs (tests/test_kernels.py)
-SSD_TOL = 2e-4           # ssd_scan vs the sequential plain version, f32
-RGLRU_TOL = 1e-5         # rglru_scan vs the doubling-scan plain version, f32
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.bench.common import (BF16_TOL, RGLRU_TOL,  # noqa: E402
+                                      SSD_TOL, bound, copies, max_err,
+                                      nbytes, time_ms, within)
+
 LOGIT_TOL = 5e-2         # model logits, hopper vs reference, x max|ref|
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, H100 SXM at 700 W
-F32_FLOPS = 67e12        # float32 CUDA-core peak (no TF32), H100 SXM
-TF32X3_FLOPS = 495e12 / 3  # float32 on the TF32 tensor cores (495 TFLOP/s)
-#                            split hi + lo: three products a multiply-add
 
 
 def log(obj) -> None:
     print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
 
 
-def device_us_per_call(prof, iters: int) -> dict:
-    """Device microseconds per call of each kernel in a profile of
-    ``iters`` calls that each launch the same kernels. torch.profiler can
-    drop some of a kernel's launches from its window (on the H100: 199 of
-    200 launches of one kernel, in every profile of a call), so a kernel's
-    time is its mean time per recorded launch times its launches per call
-    (its count over ``iters``, rounded), not its total over ``iters``."""
-    out = {}
-    for e in prof.key_averages():
-        if e.self_device_time_total > 0:
-            per_call = e.count / iters
-            per_call = round(per_call) if per_call >= 0.5 else per_call
-            out[e.key[:60]] = e.self_device_time_total / e.count * per_call
-    return out
+# each kernel of the kernels line: its wrapper, its source, the TPU kernel
+# it replaces
+KERNELS = {
+    "flash_prefill": (
+        "flash_seq_op",
+        "src/repro_torch/kernels/flash_prefill/csrc/flash_prefill.cu",
+        "src/repro/kernels/flash_prefill/flash_prefill.py:134"),
+    "flash_prefill_dyn": (
+        "flash_chunk_op",
+        "src/repro_torch/kernels/flash_prefill/csrc/flash_prefill.cu",
+        "src/repro/kernels/flash_prefill/flash_prefill.py:193"),
+    "paged_attention": (
+        "paged_attention_op",
+        "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention/paged_attention.py:106"),
+    "ssd_scan": (
+        "ssd_scan_op",
+        "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan/ssd_scan.py:85"),
+    "rglru_scan": (
+        "rglru_scan_op",
+        "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+        "src/repro/kernels/rglru_scan/rglru_scan.py:60"),
+}
 
 
-def time_ms(fn, arg_sets, iters: int):
-    """Per-call times of ``fn(*args)`` over ``iters`` calls, cycling through
-    ``arg_sets`` (copies of the inputs whose total exceeds the 50 MB L2, so
-    each call reads its inputs from device memory). Returns (device_ms,
-    call_ms): the device time of every kernel the calls launched, from
-    torch.profiler (``device_us_per_call``), and the CUDA-event time
-    between the first call and the last, which also holds any host
-    overhead that left the device idle."""
-    from torch.profiler import ProfilerActivity, profile
-    for args in arg_sets[:2]:
-        fn(*args)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(*arg_sets[i % len(arg_sets)])
-    end.record()
-    torch.cuda.synchronize()
-    call_ms = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
-    dropped = {e.key[:60]: e.count for e in prof.key_averages()
-               if e.self_device_time_total > 0 and e.count % iters}
-    if dropped:
-        log({"profiler_launch_counts_off": dropped, "iters": iters})
-    device_us = sum(device_us_per_call(prof, iters).values())
-    if device_us <= 0:
-        raise AssertionError("torch.profiler saw no device time")
-    return device_us / 1e3, call_ms
+def main_cases() -> dict:
+    """bench_kernels' cases at the main paths' shapes, by kernel: the
+    shapes the kernels line reports, timed in the bench phase."""
+    from repro_torch.bench import bench_kernels
+    return {c.name: c for c in bench_kernels.cases("main",
+                                                   torch.device("cuda"))}
 
 
-def copies(tensors, min_total=160 << 20, cap=64):
-    per = sum(t.numel() * t.element_size() for t in tensors)
-    n = max(2, min(cap, math.ceil(min_total / per)))
-    return [tuple(t.clone() for t in tensors) for _ in range(n)]
-
-
-def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def max_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
-
-
-def within(got, want, tol=BF16_TOL) -> bool:
-    """allclose with atol = rtol = ``tol``, as tests/test_kernels.py."""
-    g, w = got.float(), want.float()
-    return bool(((g - w).abs() <= tol + tol * w.abs()).all())
-
-
-def report_rows(rows, tol, library):
-    """Log each kernel check and fail on one outside ``tol``; turns the
-    (device_ms, call_ms) pairs into the device times the kernels line
-    carries."""
-    for r in rows:
-        b_ms, b_by = r.pop("bound")
-        call = {k: r[k][1] for k in ("ms", "plain_ms", "library_ms")
-                if r[k] is not None}
-        r.update({k: r[k][0] for k in call})
-        r.update(bound_ms=b_ms, bound_by=b_by, route="cuda")
-        log({"kernel_check": r["name"], "shape": r["shape"],
-             "max_abs_err": r["max_abs_err"],
-             "tol": f"atol=rtol={tol}", "within_tol": r["ok"],
-             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
-             "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": r["library_ms"], "library": library,
-             "per_call_event_ms": call})
-        if not r.pop("ok"):
-            raise AssertionError(f"{r['name']}: kernel differs from its "
-                                 f"plain version by {r['max_abs_err']}")
-    return rows
+def report(name: str, shape: str, pairs, tol: float) -> dict:
+    """Log a kernel's check over its (kernel, plain) output pairs and fail
+    if one lies outside ``tol``; returns the kernels line's start of a
+    row."""
+    err = max(max_err(a, b) for a, b in pairs)
+    ok = all(within(a, b, tol) for a, b in pairs)
+    log({"kernel_check": name, "shape": shape, "max_abs_err": err,
+         "tol": f"atol=rtol={tol}", "within_tol": ok})
+    if not ok:
+        raise AssertionError(f"{name}: kernel differs from its plain "
+                             f"version by {err}")
+    wrapper, source, replaces = KERNELS[name]
+    return dict(name=name, wrapper=wrapper, route="cuda", source=source,
+                replaces=replaces, shape=shape, max_abs_err=err)
 
 
 # ------------------------------------------------------------- kernels
 
 
-def check_kernels(cfg):
-    """Each kernel vs its plain version on the card, at the main path's
-    shapes: flash_seq at the profiling pass's longest prompt (S=128),
-    flash_chunk for the serve phase's chunks against a 1024-slot cache
-    (timed: 256 tokens at offset 512), paged decode over 8 slots of 1024
-    with lengths from 1 to 1024."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import (flash_chunk_op, flash_seq_op,
-                                     paged_attention_op)
+def check_kernels(cfg, cases: dict):
+    """Each attention kernel vs its plain version on the card: at the main
+    path's shapes (``cases``: flash_seq at the profiling pass's longest
+    prompt, S=128; flash_chunk's 256 tokens at offset 512 of a 1024-slot
+    cache; paged decode over 8 slots of 1024 with lengths from 1 to 1024)
+    and at the serve phase's other chunks, the speculative verify's rows
+    and a shuffled page table."""
+    from repro_torch.bench.bench_kernels import check
+    from repro_torch.kernels import flash_chunk_op, paged_attention_op
     from repro_torch.kernels.flash_prefill import flash_prefill_ref
     from repro_torch.kernels.flash_prefill.ops import plan, wgmma_attrs
     from repro_torch.kernels.paged_attention import paged_attention_ref
@@ -232,143 +191,74 @@ def check_kernels(cfg):
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=dev).to(bf)
 
-    def sdpa(q, k, v, mask=None, causal=False):
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                              is_causal=causal,
-                                              enable_gqa=True)
-
     def to_bhsd(t):
         return t.transpose(1, 2).contiguous()
 
     rows = []
-
-    # flash_seq: whole-prompt prefill, q_offset = 0
-    S = 128
-    q, k, v = rnd(1, S, H, D), rnd(1, S, Hk, D), rnd(1, S, Hk, D)
-    got = flash_seq_op(q, k, v)
-    want = flash_prefill_ref(to_bhsd(q), to_bhsd(k), to_bhsd(v)
-                             ).transpose(1, 2)
-    torch.cuda.synchronize()
-    log({"flash_seq_check": f"q(1,{S},{H},{D})",
+    case = cases["flash_prefill"]
+    got, want, _, _ = check(case)
+    S = case.inputs[0].shape[1]
+    log({"flash_seq_check": case.label,
          "plan": plan(1, H, Hk, S, S, D, 0, None)._asdict()})
-    pairs = S * (S + 1) // 2
-    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
-    sets = copies([q, k, v])
-    lib_sets = [tuple(to_bhsd(t) for t in s) for s in sets]
-    rows.append(dict(
-        name="flash_prefill", wrapper=flash_seq_op,
-        source="src/repro_torch/kernels/flash_prefill/csrc/flash_prefill.cu",
-        replaces="src/repro/kernels/flash_prefill/flash_prefill.py:134",
-        shape=f"q(1,{S},{H},{D}) kv(1,{S},{Hk},{D}) bf16 causal",
-        max_abs_err=max_err(got, want), ok=within(got, want),
-        ms=time_ms(lambda a, b, c: flash_seq_op(a, b, c), sets, 200),
-        plain_ms=time_ms(lambda a, b, c: flash_prefill_ref(a, b, c),
-                         lib_sets, 50),
-        library_ms=time_ms(lambda a, b, c: sdpa(a, b, c, causal=True),
-                           lib_sets, 200),
-        bound=bound(nbytes, 4.0 * D * H * pairs)))
+    rows.append(report(case.name, case.label, list(zip(got, want)),
+                       BF16_TOL))
 
-    # flash_chunk: the chunks the serve phase sends against the whole
-    # 1024-slot cache (256 tokens at offsets 0, 256, 512, 768 and the
+    # flash_chunk: the main case, the serve phase's other chunks against
+    # the whole 1024-slot cache (256 tokens at offsets 0, 256, 768 and the
     # smallest 32-token bucket at 992), and the speculative verify's k+1 =
     # 2, 5, 9 rows at offsets that are no multiple of the 64-position kv
-    # tile; timed at 256 tokens at offset 512
-    C = 1024
-    errs, oks = [], []
-    for Sq, off in ((256, 0), (256, 256), (256, 512), (256, 768), (32, 992),
+    # tile
+    case = cases["flash_prefill_dyn"]
+    got, want, _, _ = check(case)
+    pairs = list(zip(got, want))
+    C = case.inputs[1].shape[1]
+    for Sq, off in ((256, 0), (256, 256), (256, 768), (32, 992),
                     *((sq, o) for sq in (2, 5, 9) for o in (37, 517, 1015))):
         q, kc, vc = rnd(1, Sq, H, D), rnd(1, C, Hk, D), rnd(1, C, Hk, D)
-        got = flash_chunk_op(q, kc, vc, off)
-        want = flash_prefill_ref(to_bhsd(q), to_bhsd(kc), to_bhsd(vc),
-                                 q_offset=off).transpose(1, 2)
+        pairs.append((flash_chunk_op(q, kc, vc, off),
+                      flash_prefill_ref(to_bhsd(q), to_bhsd(kc), to_bhsd(vc),
+                                        q_offset=off).transpose(1, 2)))
         torch.cuda.synchronize()
-        errs.append(max_err(got, want))
-        oks.append(within(got, want))
         log({"flash_chunk_check": f"q(1,{Sq},{H},{D}) at offset {off}",
-             "max_abs_err": errs[-1], "within_tol": oks[-1],
+             "max_abs_err": max_err(*pairs[-1]),
              "plan": plan(1, H, Hk, Sq, C, D, off, None)._asdict()})
     log({"flash_fwd_wgmma": f"head_dim {D}", **wgmma_attrs(D)})
-    flash_verify_timing(H, Hk, D, C, rnd, sdpa, to_bhsd)
-    Sq, off = 256, 512
-    q, kc, vc = rnd(1, Sq, H, D), rnd(1, C, Hk, D), rnd(1, C, Hk, D)
-    T = off + Sq
-    pairs = Sq * off + Sq * (Sq + 1) // 2
-    nbytes = 2 * (2 * q.numel() + 2 * T * Hk * D)
-    sets = copies([q, kc, vc])
-    qpos = torch.arange(Sq, device=dev)[:, None] + off
-    mask = torch.arange(T, device=dev)[None, :] <= qpos
-    lib_sets = [(to_bhsd(a), to_bhsd(b[:, :T]), to_bhsd(c[:, :T]))
-                for a, b, c in sets]
-    plain_sets = [tuple(to_bhsd(t) for t in s) for s in sets]
-    rows.append(dict(
-        name="flash_prefill_dyn", wrapper=flash_chunk_op,
-        source="src/repro_torch/kernels/flash_prefill/csrc/flash_prefill.cu",
-        replaces="src/repro/kernels/flash_prefill/flash_prefill.py:193",
-        shape=f"q(1,{Sq},{H},{D}) at offset {off}, kv(1,{C},{Hk},{D}) bf16; "
-              "+ offsets 0, 256, 768, a 32-token chunk at 992, and 2, 5 "
-              "and 9 rows at offsets 37, 517 and 1015",
-        max_abs_err=max(errs), ok=all(oks),
-        ms=time_ms(lambda a, b, c: flash_chunk_op(a, b, c, off), sets, 200),
-        plain_ms=time_ms(lambda a, b, c: flash_prefill_ref(
-            a, b, c, q_offset=off), plain_sets, 50),
-        library_ms=time_ms(lambda a, b, c: sdpa(a, b, c, mask=mask),
-                           lib_sets, 200),
-        bound=bound(nbytes, 4.0 * D * H * pairs)))
+    rows.append(report(case.name, f"{case.label}; + offsets 0, 256, 768, "
+                       "a 32-token chunk at 992, and 2, 5 and 9 rows at "
+                       "offsets 37, 517 and 1015", pairs, BF16_TOL))
+    flash_verify_timing(H, Hk, D, C, rnd, to_bhsd)
 
-    # paged decode: 8 slots x 1024 positions viewed as 8 pages of 128
-    B, page = 8, 128
+    # paged decode: the main case (8 slots x 1024 positions viewed as 8
+    # pages of 128), and a general page table (pages shuffled) over the
+    # same lengths
+    case = cases["paged_attention"]
+    got, want, _, _ = check(case)
+    pairs = list(zip(got, want))
+    q, kp, vp = case.inputs
+    B, page = q.shape[0], kp.shape[1]
     MP = C // page
     lengths_l = [1, 100, 257, 400, 512, 700, 731, 1024]
+    ln = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
     qd = rnd(B, H, D)
     kp, vp = rnd(B * MP, page, Hk, D), rnd(B * MP, page, Hk, D)
-    pt = (torch.arange(B, device=dev)[:, None] * MP
-          + torch.arange(MP, device=dev)[None, :]).to(torch.int32)
-    ln = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
-    got = paged_attention_op(qd, kp, vp, pt, ln)
-    want = paged_attention_ref(qd, kp, vp, pt, ln)
-    # a general page table (pages shuffled) gives the same answer
-    perm = torch.randperm(B * MP, generator=g, device=dev)
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(B * MP, device=dev)
-    got_perm = paged_attention_op(qd, kp[perm].contiguous(),
-                                  vp[perm].contiguous(),
-                                  inv[pt.long()].to(torch.int32), ln)
+    pt = torch.randperm(B * MP, generator=g, device=dev).to(
+        torch.int32).view(B, MP)
+    pairs.append((paged_attention_op(qd, kp, vp, pt, ln),
+                  paged_attention_ref(qd, kp, vp, pt, ln)))
     torch.cuda.synchronize()
     log({"paged_check": f"q({B},{H},{D}) pages of {page}, {MP} a row",
          "plan": paged_plan(B, H, Hk, D, page, MP)._asdict(),
          "paged_decode_split": paged_attrs(bf, H // Hk)})
-    live = sum(lengths_l)
-    nbytes = 2 * (2 * qd.numel() + 2 * live * Hk * D) + 4 * (pt.numel() + B)
-    sets = copies([qd, kp, vp])
-    pos = torch.arange(C, device=dev)
-    dmask = (pos[None, :] < ln[:, None].long())[:, None, None, :]
-    lib_sets = [(a[:, :, None], b.view(B, C, Hk, D).transpose(1, 2)
-                 .contiguous(), c.view(B, C, Hk, D).transpose(1, 2)
-                 .contiguous()) for a, b, c in sets]
-    rows.append(dict(
-        name="paged_attention", wrapper=paged_attention_op,
-        source=("src/repro_torch/kernels/paged_attention/csrc/"
-                "paged_attention.cu"),
-        replaces="src/repro/kernels/paged_attention/paged_attention.py:106",
-        shape=f"q({B},{H},{D}) pages({B * MP},{page},{Hk},{D}) bf16, "
-              f"lengths {lengths_l}",
-        max_abs_err=max(max_err(got, want), max_err(got_perm, want)),
-        ok=within(got, want) and within(got_perm, want),
-        ms=time_ms(lambda a, b, c: paged_attention_op(a, b, c, pt, ln),
-                   sets, 200),
-        plain_ms=time_ms(lambda a, b, c: paged_attention_ref(
-            a, b, c, pt, ln), sets, 50),
-        library_ms=time_ms(lambda a, b, c: sdpa(a, b, c, mask=dmask),
-                           lib_sets, 200),
-        bound=bound(nbytes, 4.0 * D * H * live)))
-
-    return report_rows(rows, BF16_TOL, "sdpa")
+    rows.append(report(case.name, f"{case.label}, lengths {lengths_l}; "
+                       "+ a shuffled page table", pairs, BF16_TOL))
+    return rows
 
 
-def flash_verify_timing(H, Hk, D, C, rnd, sdpa, to_bhsd):
+def flash_verify_timing(H, Hk, D, C, rnd, to_bhsd):
     """Device time of flash_chunk at the speculative verify's shape (k+1 =
     5 rows at offset 517 of a 1024-slot cache), beside its plain version,
     SDPA and its bound; logged, not a row of the kernels line."""
+    from repro_torch.bench.bench_kernels import sdpa
     from repro_torch.kernels import flash_chunk_op
     from repro_torch.kernels.flash_prefill import flash_prefill_ref
     from repro_torch.kernels.flash_prefill.ops import plan
@@ -398,19 +288,16 @@ def flash_verify_timing(H, Hk, D, C, rnd, sdpa, to_bhsd):
                                "library_ms": lib[1]}})
 
 
-def check_scan_kernels():
-    """ssd_scan and rglru_scan vs their plain versions on the card, at the
-    main paths' shapes: one 256-token prefill chunk of full-width
-    mamba2-370m (H=32, P=64, N=128, chunk 128, B and C at the group level
-    the model passes, n_groups 1) and of recurrentgemma-9b (lru_width
-    4096), each from a random state; also batch 8, B and C repeated per
-    head, two groups, a two-half chunk resume through h0, and for
-    rglru_scan a 160-token bucket (a length the TPU kernel's 128-token
-    tiles refuse), a whole 1024-slot prompt and a single step. The ssd
-    bound counts C.B^T once per group and chunk, as the kernel computes
-    it, at the rate of the tensor cores that do its products (3xTF32). No
-    single PyTorch call computes either function, so library_ms is
-    null."""
+def check_scan_kernels(cases: dict):
+    """ssd_scan and rglru_scan vs their plain versions on the card: at the
+    main paths' shapes (``cases``: one 256-token prefill chunk of
+    full-width mamba2-370m, H=32, P=64, N=128, chunk 128, B and C at the
+    group level the model passes, n_groups 1, and of recurrentgemma-9b,
+    lru_width 4096, each from a random state), and at batch 8, B and C
+    repeated per head, two groups, a two-half chunk resume through h0, and
+    for rglru_scan a 160-token bucket (a length the TPU kernel's 128-token
+    tiles refuse), a whole 1024-slot prompt and a single step."""
+    from repro_torch.bench.bench_kernels import check
     from repro_torch.kernels import rglru_scan_op, ssd_scan_op
     from repro_torch.kernels.rglru_scan import rglru_scan_ref
     from repro_torch.kernels.ssd_scan import ssd_scan_ref
@@ -430,21 +317,17 @@ def check_scan_kernels():
     def rglru_inputs(B, S, W=4096):
         return -rnd(B, S, W).abs() * 0.3, rnd(B, S, W), rnd(B, W)
 
-    def err_ok(pairs, tol):
-        errs = [max_err(a, b) for a, b in pairs]
-        return max(errs), all(within(a, b, tol) for a, b in pairs)
-
-    Q = 128
-    x, la, Bm, Cm, h0 = main_in = ssd_inputs(1, 256)
-    got = ssd_scan_op(x, la, Bm, Cm, Q, h0=h0)
-    want = ssd_scan_ref(x, la, Bm, Cm, h0)
+    case = cases["ssd_scan"]
+    got, want, _, _ = check(case)
+    x, la, Bm, Cm, h0 = case.inputs
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = S // 2
     y1, h1 = ssd_scan_op(x[:, :Q], la[:, :Q], Bm[:, :Q], Cm[:, :Q], Q, h0=h0)
     y2, h2 = ssd_scan_op(x[:, Q:], la[:, Q:], Bm[:, Q:], Cm[:, Q:], Q, h0=h1)
     b8 = ssd_inputs(8, 256)
     got8 = ssd_scan_op(*b8[:4], Q, h0=b8[4])
     want8 = ssd_scan_ref(*b8)
-    B, S, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
     # the per-head form of the JAX contract, and two groups
     per_head = ssd_scan_op(x, la, Bm.repeat_interleave(H // G, 2),
                            Cm.repeat_interleave(H // G, 2), Q, h0=h0)
@@ -452,63 +335,35 @@ def check_scan_kernels():
     got2 = ssd_scan_op(*g2[:4], Q, h0=g2[4])
     want2 = ssd_scan_ref(*g2)
     torch.cuda.synchronize()
-    err, ok = err_ok(list(zip(got, want)) + list(zip(got8, want8))
-                     + list(zip(per_head, want)) + list(zip(got2, want2))
-                     + [(torch.cat([y1, y2], 1), got[0]), (h2, got[1])],
-                     SSD_TOL)
     from repro_torch.kernels.ssd_scan.ops import kernel_attrs as ssd_attrs
     log({"ssd_scan_phases": f"chunk {Q}, d_state {N}", **ssd_attrs()})
-    nc = S // Q
-    pairs = Q * (Q + 1) // 2                      # causal (i, j) of a chunk
-    flops = B * nc * (H * (2 * pairs * P          # (C.B^T o decay) x
-                           + 2 * 2 * Q * N * P)   # C.state, state update
-                      + G * 2 * pairs * N)        # C.B^T, once per group
-    sets = copies(list(main_in))
-    ssd = dict(
-        name="ssd_scan", wrapper=ssd_scan_op,
-        source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
-        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:85",
-        shape=f"x(1,{S},{H},{P}) Bm/Cm(1,{S},{G},{N}) h0 chunk {Q} f32; "
-              f"+ batch 8, + per-head B/C, + 2 groups, + resume from two "
-              f"halves",
-        max_abs_err=err, ok=ok,
-        ms=time_ms(lambda *a: ssd_scan_op(*a[:4], Q, h0=a[4]), sets, 200),
-        plain_ms=time_ms(lambda *a: ssd_scan_ref(*a), sets[:4], 10),
-        library_ms=None,
-        bound=bound(nbytes(*main_in, *got), flops, TF32X3_FLOPS))
+    rows = [report(case.name, f"{case.label}; + batch 8, + per-head B/C, "
+                   "+ 2 groups, + resume from two halves",
+                   list(zip(got, want)) + list(zip(got8, want8))
+                   + list(zip(per_head, want)) + list(zip(got2, want2))
+                   + [(torch.cat([y1, y2], 1), got[0]), (h2, got[1])],
+                   SSD_TOL)]
 
     from repro_torch.kernels.rglru_scan.ops import kernel_attrs as rg_attrs
     from repro_torch.kernels.rglru_scan.ops import plan as rg_plan
-    la, gt, h0 = main_in = rglru_inputs(1, 256)
-    got = rglru_scan_op(la, gt, h0)
-    want = rglru_scan_ref(la, gt, h0)
+    case = cases["rglru_scan"]
+    got, want, _, _ = check(case)
     pairs = list(zip(got, want))
     for B, S in ((1, 160), (8, 256), (1, 1024), (1, 1)):
         a = rglru_inputs(B, S)
         pairs += list(zip(rglru_scan_op(*a), rglru_scan_ref(*a)))
     torch.cuda.synchronize()
-    err, ok = err_ok(pairs, RGLRU_TOL)
     pl = rg_plan(1, 256, 4096)
     log({"rglru_scan_plans": {f"({B},{S},4096)": rg_plan(B, S, 4096)._asdict()
                               for B, S in ((1, 256), (1, 160), (8, 256),
                                            (1, 1024), (1, 1))},
          "rglru_cluster": rg_attrs(pl),
          "rglru_cluster_4_rounds": rg_attrs(rg_plan(1, 1024, 4096))})
-    sets = copies(list(main_in))
-    rglru = dict(
-        name="rglru_scan", wrapper=rglru_scan_op,
-        source="src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
-        replaces="src/repro/kernels/rglru_scan/rglru_scan.py:60",
-        shape=f"log_a/gated(1,256,4096) h0 f32, route {pl.route}, "
-              f"{pl.blocks} blocks in clusters of {pl.cluster}; + "
-              "(1,160,4096), (8,256,4096), (1,1024,4096), (1,1,4096)",
-        max_abs_err=err, ok=ok,
-        ms=time_ms(lambda *a: rglru_scan_op(*a), sets, 200),
-        plain_ms=time_ms(lambda *a: rglru_scan_ref(*a), sets, 50),
-        library_ms=None,
-        bound=bound(nbytes(*main_in, *got), 2.0 * la.numel(), F32_FLOPS))
-    return report_rows([ssd], SSD_TOL, None) \
-        + report_rows([rglru], RGLRU_TOL, None)
+    rows.append(report(case.name, f"{case.label}, route {pl.route}, "
+                       f"{pl.blocks} blocks in clusters of {pl.cluster}; + "
+                       "(1,160,4096), (8,256,4096), (1,1024,4096), "
+                       "(1,1,4096)", pairs, RGLRU_TOL))
+    return rows
 
 
 def check_sampler():
@@ -620,9 +475,9 @@ def check_recurrent_model(cfg, params, dev="cuda"):
 # --------------------------------------------------------------- serve
 
 
-def submit_round(cluster, cfg, rng, base: int):
-    """8 requests (prompts of 100-700 tokens, 32 outputs; odd ones sampled
-    at temperature 0.8 / top-p 0.9), all due at once."""
+def submit_round(cluster, cfg, rng, base: int, out_len: int = 32):
+    """8 requests (prompts of 100-700 tokens, ``out_len`` outputs; odd ones
+    sampled at temperature 0.8 / top-p 0.9), all due at once."""
     from repro_torch.core import Request, SamplingParams
     lens = rng.integers(100, 701, size=8)
     handles = []
@@ -631,14 +486,15 @@ def submit_round(cluster, cfg, rng, base: int):
         sp = SamplingParams(temperature=0.8, top_p=0.9) if i % 2 else None
         handles.append(cluster.submit(
             Request(rid=base + i, arrival=0.0, input_len=int(n),
-                    output_len=32, sampling=sp), prompt=prompt))
+                    output_len=out_len, sampling=sp), prompt=prompt))
     return [int(n) for n in lens], handles
 
 
-def check_streams(cfg, handles) -> None:
+def check_streams(cfg, handles, out_len: int = 32) -> None:
     for h in handles:
         toks = [t for t in h.tokens if t is not None]
-        if len(toks) != 32 or not all(0 <= t < cfg.vocab_size for t in toks):
+        if len(toks) != out_len or not all(0 <= t < cfg.vocab_size
+                                           for t in toks):
             raise AssertionError(f"rid {h.rid}: bad stream {toks}")
 
 
@@ -753,18 +609,25 @@ def check_stream_identity(cfg, expect, dev="cuda"):
     torch.cuda.empty_cache()
 
 
+# outputs a request of the profiled round: the profiler's collection after
+# the round takes 7-8x the round's wall time, and grows with its decode steps
+PROFILE_OUT = 16
+
+
 def profile_round(cluster, cfg, tags):
-    """A second round of 8 requests on the same cluster under torch.profiler
-    (device activity only): the device's busy time against the wall time
-    of the round, and device time by kernel."""
+    """A second round of 8 requests (``PROFILE_OUT`` outputs each) on the
+    same cluster under torch.profiler (device activity only): the device's
+    busy time against the wall time of the round, and device time by
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
-    _, handles = submit_round(cluster, cfg, np.random.default_rng(12), 100)
+    _, handles = submit_round(cluster, cfg, np.random.default_rng(12), 100,
+                              PROFILE_OUT)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         cluster.drain(timeout=600.0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    check_streams(cfg, handles)
+    check_streams(cfg, handles, PROFILE_OUT)
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages()), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
@@ -784,7 +647,12 @@ def profile_round(cluster, cfg, tags):
 RUNTIME_PLAN = ("droptransfer@0.05:p=0.7,duration=1;"
                 "netslow@0.2:factor=3,duration=1;crash@0.1:target=1")
 SSM_LEG = dict(rate=1.5, duration=4.0)   # bench_ssm's traffic, a 4 s trace
-MAMBA2_BF16_BYTES = 50_995_200       # a request's state at full width
+# a request's mamba2-370m state a layer at full width (50,995,200 B at
+# its 48 layers)
+MAMBA2_BF16_BYTES_PER_LAYER = 1_062_400
+# bench_ssm's legs at half the published depth (full width): a leg's time
+# is the host's, which grows with the layers a pass runs
+SSM_LEG_LAYERS = {"mamba2-370m": 24, "qwen3-1.7b": 14}
 
 
 def free_card() -> None:
@@ -1075,16 +943,18 @@ def runtime_elastic(cfg, params) -> None:
 
 
 def runtime_ssm_legs(arch: str, dtype: str) -> None:
-    """bench_ssm's legs at the arch's full width: forced migration
-    (``arrow``) against ``colocated`` and, in float32, a replay; both
-    asserted identical in float32 (in bf16 the number of streams equal to
-    the colocated ones is reported). Mamba-2's
-    migration bytes must be constant over context, qwen3's proportional
-    (in bf16 exactly 50,995,200 B a request and 114,688 B a token)."""
+    """bench_ssm's legs at the arch's full width and ``SSM_LEG_LAYERS``:
+    forced migration (``arrow``) against ``colocated`` and, in float32, a
+    replay; both asserted identical in float32 (in bf16 the number of
+    streams equal to the colocated ones is reported). Mamba-2's migration
+    bytes must be constant over context, qwen3's proportional (in bf16
+    exactly 1,062,400 B a layer a request and 4,096 B a layer a
+    token)."""
     from repro_torch.bench import bench_ssm
     from repro_torch.configs import get_config
     from repro_torch.weights import init_params, torch_dtype
-    cfg = get_config(arch).replace(attn_impl="hopper", dtype=dtype)
+    cfg = get_config(arch).replace(attn_impl="hopper", dtype=dtype,
+                                   n_layers=SSM_LEG_LAYERS[arch])
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     runs = {}
@@ -1100,7 +970,8 @@ def runtime_ssm_legs(arch: str, dtype: str) -> None:
     mlog, streams, _ = runs[0]
     size = {m["bytes"] for m in mlog}
     per_tok = {m["bytes"] / m["ctx_tokens"] for m in mlog}
-    res = {"arch": arch, "dtype": dtype, "migrations": len(mlog),
+    res = {"arch": arch, "dtype": dtype, "layers": cfg.n_layers,
+           "migrations": len(mlog),
            "ctx": sorted({m["ctx_tokens"] for m in mlog}),
            "bytes": sorted(size), "bytes_per_token": sorted(per_tok),
            "serve_s": [r[2] for r in runs.values()]}
@@ -1119,7 +990,8 @@ def runtime_ssm_legs(arch: str, dtype: str) -> None:
         raise AssertionError(f"ssm leg migrated too little: {res}")
     if cfg.family == "ssm":
         if len(size) != 1 or (dtype == "bfloat16"
-                              and size != {MAMBA2_BF16_BYTES}):
+                              and size != {MAMBA2_BF16_BYTES_PER_LAYER
+                                           * cfg.n_layers}):
             raise AssertionError(f"mamba2 migration bytes: {res}")
         if dtype == "float32" and (res["colocated_equal"] != n
                                    or res["replay_equal"] != n):
@@ -1141,7 +1013,8 @@ def runtime_phase(smi: str) -> dict:
     float32 (TF32 off) then bf16 the chaos engine leg; in float32 the
     corrupt-copy path, deflection at its barrier, prefix reuse,
     preemption and an elastic scale-up; then bench_ssm's legs for
-    mamba2-370m and qwen3-1.7b in bf16 and float32. Every launch count is
+    mamba2-370m and qwen3-1.7b (``SSM_LEG_LAYERS``) in bf16 and float32.
+    Every launch count is
     set to 0 before and read after; each kernel of the two paths must have
     run."""
     from repro_torch.configs import get_config
@@ -1150,7 +1023,6 @@ def runtime_phase(smi: str) -> dict:
                                      reset_launch_counts, ssd_scan_op)
     from repro_torch.weights import init_params
     reset_launch_counts()
-    t0 = time.perf_counter()
     chaos = {}
     for dtype in ("float32", "bfloat16"):
         cfg = get_config("qwen3-1.7b").replace(attn_impl="hopper",
@@ -1170,8 +1042,7 @@ def runtime_phase(smi: str) -> dict:
         for arch in ("mamba2-370m", "qwen3-1.7b"):
             runtime_ssm_legs(arch, dtype)
     counts = launch_counts()
-    wall = time.perf_counter() - t0
-    log({"runtime_phase": {"wall_s": wall, "card": smi,
+    log({"runtime_phase": {"card": smi,
                            "launches": counts,
                            "chaos_streams_equal": {
                                k: v["streams_equal"]
@@ -2127,11 +1998,72 @@ def paths():
                                                      "rglru_channel")))
 
 
+def bench_phase(smi: str) -> dict:
+    """repro_torch.bench.bench_kernels on the card (the five kernels at the
+    JAX bench's shapes and the main paths', each against its plain
+    version: one outside its tolerance fails), then repro_torch.bench's
+    roofline over the records the distributed phase's dry-runs wrote:
+    decode must not be compute-bound. Returns the kernels' launches and
+    bench_kernels' rows at the main paths' shapes, by kernel."""
+    from repro_torch.bench import bench_kernels, roofline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    rows = bench_kernels.main(["--device", "cuda"])
+    counts = launch_counts()
+    log({"bench_kernels": rows, "card": smi, "launches": counts})
+    idle = [k for k, v in counts.items() if v == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched by bench_kernels: "
+                             f"{idle}")
+    roof = roofline.main([])
+    log({"roofline": roof, "note": "per device of the fake 16x16 mesh; "
+         "memory terms from unfused bytes"})
+    decode = [r for r in roof if r.get("shape") == "decode_32k"]
+    if not decode or any(r["dominant"] == "compute" for r in decode):
+        raise AssertionError(f"decode_32k missing or compute-bound: "
+                             f"{decode}")
+    return counts, {r["name"]: r for r in rows
+                    if r["shape"].startswith("main_")}
+
+
+def kernel_row(check: dict, timed: dict, counts: dict) -> dict:
+    """A kernel's entry of the kernels line: its kernel check's error, its
+    launches, and bench_kernels' device times and bound at the main
+    path's shape (its error there too)."""
+    return {"name": check["name"], "route": check["route"],
+            "source": check["source"], "replaces": check["replaces"],
+            "launches": counts[check["wrapper"]],
+            "max_abs_err": max(check["max_abs_err"], timed["max_abs_err"]),
+            "ms": timed["device_us"] / 1e3,
+            "plain_ms": timed["ref_us"] / 1e3,
+            "bound_ms": timed["bound_us"] / 1e3,
+            "bound_by": timed["bound_by"],
+            "library_ms": None if timed["library_us"] is None
+            else timed["library_us"] / 1e3}
+
+
+@contextlib.contextmanager
+def part(times: dict, name: str):
+    """Put the wall time of the block into ``times[name]``."""
+    t0 = time.perf_counter()
+    yield
+    times[name] = time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def phase(times: dict, name: str):
+    """``part``, and log the phase's wall time as it ends."""
+    with part(times, name):
+        yield
+    log({"phase": name, "wall_s": times[name]})
+
+
 def main() -> int:
+    t_start = time.perf_counter()
+    phases = {}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.weights import init_params
@@ -2146,65 +2078,87 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         "tf32 off for float32 matmuls and cudnn")
 
-    t0 = time.perf_counter()
-    libs = _build.build(verbose=True)
-    for name in libs:
-        _build.load(name)
-    log({"build_s": time.perf_counter() - t0,
-         "libs": {k: str(v.relative_to(ROOT)) if ROOT in v.parents
-                  else str(v) for k, v in libs.items()}})
-
-    link_fresh = measure_link()
-    log({"link_before_engine": link_fresh})
-    rows = check_kernels(get_config("qwen3-1.7b")) + check_scan_kernels()
-    check_sampler()
+    with phase(phases, "build"):
+        libs = _build.build(verbose=True)
+        for name in libs:
+            _build.load(name)
+        log({"libs": {k: str(v.relative_to(ROOT)) if ROOT in v.parents
+                      else str(v) for k, v in libs.items()}})
+    with phase(phases, "link_before_engine"):
+        link_fresh = measure_link()
+        log({"link_before_engine": link_fresh})
+    with phase(phases, "kernel_checks"):
+        cases = main_cases()
+        rows = check_kernels(get_config("qwen3-1.7b"), cases) \
+            + check_scan_kernels(cases)
+        del cases
+    with phase(phases, "sampler"):
+        check_sampler()
     counts, obs = {}, {}
     for arch, expect, tags in paths():
         cfg = get_config(arch)              # full width, bf16
-        g = torch.Generator(device="cuda").manual_seed(0)
-        params = init_params(cfg, g, "cuda")
-        log({"arch": arch, "layers": cfg.n_layers,
-             "params": sum(p.numel() for p in params.values()),
-             "param_bytes": nbytes(*params.values())})
+        modes = "fused, legacy, speculative" if cfg.family == "dense" \
+            else "fused"
+        with phase(phases, f"engine {arch} ({modes})"):
+            g = torch.Generator(device="cuda").manual_seed(0)
+            params = init_params(cfg, g, "cuda")
+            log({"arch": arch, "layers": cfg.n_layers,
+                 "params": sum(p.numel() for p in params.values()),
+                 "param_bytes": nbytes(*params.values())})
+            parts = {}
+            with part(parts, "model_check"):
+                if cfg.family == "dense":
+                    check_model(cfg, params)
+                else:
+                    check_recurrent_model(cfg, params)
+            with part(parts, "serve"):
+                cluster, c, streams = serve(cfg, params, expect)
+            counts.update({w.__name__: c[w.__name__] for w in expect})
+            fused = cluster.report()
+            with part(parts, "profile_round"):
+                profile_round(cluster, cfg, tags)
+            with part(parts, "engine_samples"):
+                obs[arch] = engine_samples(cluster, cfg, params, fused)
+            del cluster
+            if cfg.family == "dense":
+                # the kernels line counts every bf16 serve phase of the path
+                with part(parts, "step_modes"):
+                    modes_run = step_modes(cfg, params, expect, streams)
+                for mc, _ in modes_run.values():
+                    for w in expect:
+                        counts[w.__name__] += mc[w.__name__]
+            log({"engine_parts_s": {"arch": arch, **parts}})
+            del params                      # free before the next model
+            gc.collect()
+            torch.cuda.empty_cache()
         if cfg.family == "dense":
-            check_model(cfg, params)
-        else:
-            check_recurrent_model(cfg, params)
-        cluster, c, streams = serve(cfg, params, expect)
-        counts.update({w.__name__: c[w.__name__] for w in expect})
-        fused = cluster.report()
-        profile_round(cluster, cfg, tags)
-        obs[arch] = engine_samples(cluster, cfg, params, fused)
-        del cluster
-        if cfg.family == "dense":
-            # the kernels line counts every bf16 serve phase of the path
-            for mc, _ in step_modes(cfg, params, expect, streams).values():
-                for w in expect:
-                    counts[w.__name__] += mc[w.__name__]
-        del params                          # free before the next model
-        gc.collect()
-        torch.cuda.empty_cache()
-        if cfg.family == "dense":
-            check_stream_identity(cfg, expect)
+            with phase(phases,
+                       f"stream_identity {arch} (float32, three modes)"):
+                check_stream_identity(cfg, expect)
 
-    runtime_counts = runtime_phase(smi)
+    with phase(phases, "runtime"):
+        runtime_counts = runtime_phase(smi)
     for w in counts:
         counts[w] += runtime_counts[w]
-    sim_phase(obs, smi, link_fresh)
-    zoo_counts = zoo_phase(smi)
+    with phase(phases, "sim"):
+        sim_phase(obs, smi, link_fresh)
+    with phase(phases, "zoo"):
+        zoo_counts = zoo_phase(smi)
     for w in ("flash_seq_op", "paged_attention_op"):
         counts[w] += zoo_counts[w]
-    train_phase(smi)
-    dist_counts = dist_phase(smi)
+    with phase(phases, "train"):
+        train_phase(smi)
+    with phase(phases, "dist"):
+        dist_counts = dist_phase(smi)
     for w in ("flash_seq_op", "paged_attention_op"):
         counts[w] += dist_counts[w]
-    log({"kernels": [
-        {"name": r["name"], "route": r["route"], "source": r["source"],
-         "replaces": r["replaces"], "launches": counts[r["wrapper"].__name__],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        for r in rows]})
+    with phase(phases, "bench"):
+        bench_counts, timed = bench_phase(smi)
+    for w in counts:
+        counts[w] += bench_counts[w]
+    log({"kernels": [kernel_row(r, timed[r["name"]], counts) for r in rows]})
+    log({"phases_wall_s": phases, "total_s": time.perf_counter() - t_start,
+         "card": smi})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

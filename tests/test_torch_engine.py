@@ -332,6 +332,17 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import repro_torch.examples.serve_arrow\n"
         "import repro_torch.examples.simulate_cluster\n"
         "import repro_torch.examples.train_100m\n"
+        "import repro_torch.bench.bench_trace_stats\n"
+        "import repro_torch.bench.bench_load_difference\n"
+        "import repro_torch.bench.bench_e2e, repro_torch.bench.bench_ablation\n"
+        "import repro_torch.bench.bench_scalability\n"
+        "import repro_torch.bench.bench_flip_latency\n"
+        "import repro_torch.bench.bench_elastic\n"
+        "import repro_torch.bench.bench_deflection\n"
+        "import repro_torch.bench.bench_prefix, repro_torch.bench.bench_faults\n"
+        "import repro_torch.bench.bench_tenants\n"
+        "import repro_torch.bench.bench_kernels, repro_torch.bench.roofline\n"
+        "import repro_torch.bench.run\n"
         "repro_torch.launch.serve.main(['--mode', 'sim', '--arch',"
         " 'olmoe-1b-7b', '--trace', 'spike', '--rate', '1',"
         " '--duration', '10'])\n"

@@ -101,10 +101,10 @@ def turns(name, runs, sets, iters, time_ms):
 
 def by_kernel(fn, args=(), iters: int = 100) -> dict:
     """Device microseconds per call of each kernel ``fn(*args)`` launches
-    (chip_smoke.py's ``device_us_per_call``)."""
+    (``repro_torch.bench.common.device_us_per_call``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import device_us_per_call
+    from repro_torch.bench.common import device_us_per_call
     fn(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -451,8 +451,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
-    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
-    import chip_smoke as cs
+    sys.path[:0] = [str(ROOT / "src")]
+    from repro_torch.bench import common as cs
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
