@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict
 
 
 @dataclass
@@ -42,20 +42,16 @@ class InstanceMonitor:
             iid: InstanceStats(iid) for iid in instance_ids}
         self._intervals: Dict[int, deque] = {
             iid: deque(maxlen=window) for iid in instance_ids}
-        self._last_token_at: Dict[int, Optional[float]] = {
-            iid: None for iid in instance_ids}
 
     # ----------------------------------------------------------- lifecycle
     def add_instance(self, iid: int) -> None:
         """A freshly provisioned instance joins the scrape set (DESIGN.md §6)."""
         self.stats.setdefault(iid, InstanceStats(iid))
         self._intervals.setdefault(iid, deque(maxlen=self._window))
-        self._last_token_at.setdefault(iid, None)
 
     def remove_instance(self, iid: int) -> None:
         self.stats.pop(iid, None)
         self._intervals.pop(iid, None)
-        self._last_token_at.pop(iid, None)
 
     # --------------------------------------------------------- ingestion
     def record_iteration(self, iid: int, now: float, tokens_emitted: int,
@@ -70,7 +66,6 @@ class InstanceMonitor:
         entry, and a KeyError there would take the whole step loop down."""
         if tokens_emitted > 0 and iid in self._intervals:
             self._intervals[iid].append(duration)
-            self._last_token_at[iid] = now
 
     def update_stats(self, s: InstanceStats) -> None:
         iv = self._intervals.get(s.instance_id)
@@ -89,4 +84,3 @@ class InstanceMonitor:
 
     def reset_intervals(self, iid: int) -> None:
         self._intervals[iid].clear()
-        self._last_token_at[iid] = None

@@ -39,6 +39,7 @@ from repro_torch.core.prefix_index import content_keys, lineage_keys
 from repro_torch.core.runtime import DecodePlacement, RuntimeCore
 from repro_torch.core.serving import (FinishCallback, RequestHandle,
                                       ServeReport, TokenCallback)
+from repro_torch.core.trace import Tracer
 from repro_torch.engine.instance import (ChunkWork, CorruptPayload,
                                          EngineInstance, NoFreeSlots,
                                          resolve_device, state_checksum)
@@ -83,6 +84,7 @@ class ArrowEngineCluster(RuntimeCore):
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
             params = init_params(cfg, gen, self.device)
         self.params = params           # shared by reference across instances
+        self._tracer = None
         self.instances: Dict[int, EngineInstance] = {
             i: self._new_instance(i) for i in range(n_instances)}
         # real profiling pass on instance 0 (instances are homogeneous here)
@@ -121,12 +123,26 @@ class ArrowEngineCluster(RuntimeCore):
         self._rid_epoch: Dict[int, tuple] = {}   # rid -> (lookup, retain)
 
     def _new_instance(self, iid: int) -> EngineInstance:
-        return EngineInstance(
+        inst = EngineInstance(
             iid, self.cfg, self.params, n_slots=self.n_slots,
             capacity=self.capacity, chunk_tokens=self.chunk_tokens,
             step_mode=self.step_mode, run_seed=self.run_seed,
             speculate=self.speculate, draft_layers=self.draft_layers,
             device=self.device)
+        inst.tracer = self._tracer
+        return inst
+
+    @property
+    def tracer(self) -> Optional[Tracer]:
+        """Where the cluster and its instances record their spans
+        (``core/trace.py``); None, the default, records nothing."""
+        return self._tracer
+
+    @tracer.setter
+    def tracer(self, tracer: Optional[Tracer]) -> None:
+        self._tracer = tracer
+        for inst in self.instances.values():
+            inst.tracer = tracer
 
     @property
     def gs(self):
@@ -144,56 +160,75 @@ class ArrowEngineCluster(RuntimeCore):
         # step — the source so the exported state includes every token
         # already emitted, the destination so its in-place slab writes
         # are not mid-flight
-        src = self._kv_source(rid)
-        self._finalize_now(src)
-        self._finalize_now(dst)
-        samp = self.instances[src].kv.samp_of.get(rid)
-        payload, L, last, gen = self.instances[src].export_state(rid)
-        # end-to-end integrity (§14): checksum at export, verify at import.
-        # The source slot is retained until complete_migration acknowledges,
-        # so every retry re-sends pristine state.
-        checksum = state_checksum(payload)
-        while True:
-            nf = self.netslow_factor(self.clock.now())
-            if nf > 1.0:                  # degraded interconnect window (§14)
-                time.sleep(min((nf - 1.0) * 1e-3, 0.05))
-            wire = payload
-            if self.xfer_should_drop(self.clock.now()):
-                # a dropped attempt materializes as a corrupt wire image;
-                # corrupt a *copy* so the source tensors stay pristine
-                # (bf16 cannot go through numpy: flip bytes via uint8 views)
-                wire = [p.clone() for p in payload]
-                for p in wire:
-                    if p.numel():
-                        p.view(torch.uint8).view(-1)[0] ^= 0xFF
-                        break
-                self.health_stats["xfer_corrupt"] += 1
-            try:
-                ok = self.instances[dst].import_state(
-                    rid, wire, L, last, gen, sampling=samp, checksum=checksum)
-            except CorruptPayload:
-                attempt = self.note_xfer_drop(rid)
-                if attempt <= self.xfer_retry_budget():
-                    self.health_stats["xfer_retries"] += 1
-                    time.sleep(min(self.xfer_backoff(attempt), 0.05))
-                    continue
-                # retries exhausted: fall through to re-prefill recovery
-                # (§8); the transfer item is consumed, not requeued
-                self.fail_transfer(rid, dst, kv, self.clock.now())
-                return True
-            break
-        if not ok:
-            # no free slot: cached prefixes are reclaimable capacity (§7)
-            if not (self.prefix_mgr is not None
-                    and self.prefix_mgr.evict_one(dst) is not None
-                    and self.instances[dst].import_state(rid, payload, L, last,
-                                                         gen, sampling=samp)):
-                return False                    # genuinely full: retry later
-        # the wire cost is the payload's actual bytes — O(1) in context for
-        # constant-state families, tokens × per-token KV for dense (§13)
-        self._record_migration(rid, L, sum(int(p.nbytes) for p in payload))
-        self.complete_migration(rid, dst, kv, rem, self.clock.now())
-        return True
+        tr = self._tracer
+        if tr is not None:
+            span = tr.open("migration", rid)
+            sub = tr.open("migration.land", rid)
+        try:
+            src = self._kv_source(rid)
+            self._finalize_now(src)
+            self._finalize_now(dst)
+            if tr is not None:
+                sub = tr.next(sub, "migration.export", rid)
+            samp = self.instances[src].kv.samp_of.get(rid)
+            payload, L, last, gen = self.instances[src].export_state(rid)
+            # end-to-end integrity (§14): checksum at export, verify at
+            # import. The source slot is retained until complete_migration
+            # acknowledges, so every retry re-sends pristine state.
+            if tr is not None:
+                sub = tr.next(sub, "migration.checksum", rid)
+            checksum = state_checksum(payload)
+            if tr is not None:
+                tr.close(sub)
+            while True:
+                nf = self.netslow_factor(self.clock.now())
+                if nf > 1.0:              # degraded interconnect window (§14)
+                    time.sleep(min((nf - 1.0) * 1e-3, 0.05))
+                wire = payload
+                if self.xfer_should_drop(self.clock.now()):
+                    # a dropped attempt materializes as a corrupt wire image;
+                    # corrupt a *copy* so the source tensors stay pristine
+                    # (bf16 cannot go through numpy: flip bytes via uint8
+                    # views)
+                    wire = [p.clone() for p in payload]
+                    for p in wire:
+                        if p.numel():
+                            p.view(torch.uint8).view(-1)[0] ^= 0xFF
+                            break
+                    self.health_stats["xfer_corrupt"] += 1
+                try:
+                    ok = self.instances[dst].import_state(
+                        rid, wire, L, last, gen, sampling=samp,
+                        checksum=checksum)
+                except CorruptPayload:
+                    attempt = self.note_xfer_drop(rid)
+                    if attempt <= self.xfer_retry_budget():
+                        self.health_stats["xfer_retries"] += 1
+                        time.sleep(min(self.xfer_backoff(attempt), 0.05))
+                        continue
+                    # retries exhausted: fall through to re-prefill recovery
+                    # (§8); the transfer item is consumed, not requeued
+                    self.fail_transfer(rid, dst, kv, self.clock.now())
+                    return True
+                break
+            if not ok:
+                # no free slot: cached prefixes are reclaimable capacity (§7)
+                if not (self.prefix_mgr is not None
+                        and self.prefix_mgr.evict_one(dst) is not None
+                        and self.instances[dst].import_state(
+                            rid, payload, L, last, gen, sampling=samp)):
+                    return False                # genuinely full: retry later
+            # the wire cost is the payload's actual bytes — O(1) in context
+            # for constant-state families, tokens × per-token KV for dense
+            # (§13)
+            self._record_migration(rid, L, sum(int(p.nbytes) for p in payload))
+            if tr is not None:
+                tr.count(span, "completed", 1)
+            self.complete_migration(rid, dst, kv, rem, self.clock.now())
+            return True
+        finally:
+            if tr is not None:
+                tr.close(span)
 
     def _release_source_kv(self, src: int, rid: int, kv: int) -> None:
         # free the slot *and* the LocalScheduler token accounting (the gate
@@ -420,6 +455,10 @@ class ArrowEngineCluster(RuntimeCore):
         force-finalized so the pass always makes progress instead of
         spinning the host."""
         t = self.clock.now()
+        tr = self._tracer
+        if tr is not None:
+            top = tr.open("cluster.step", t=t)
+            phase = tr.open("step.arrivals", t=t)
         if self.fault_injector is not None:    # polled firing (§8)
             self.fault_injector.poll(t)
         # arrivals due
@@ -431,10 +470,14 @@ class ArrowEngineCluster(RuntimeCore):
             self._live[rid] = handle
         # migrations (instant data move + admission gate); snapshot the id
         # lists — elastic retirement may remove instances mid-pass
+        if tr is not None:
+            phase = tr.next(phase, "step.migrations")
         for dst in list(self.instances):
             self.admit_migrations(dst)
         # collect-ready: finalize any inflight step whose token arrays have
         # landed; the rest keep computing
+        if tr is not None:
+            phase = tr.next(phase, "step.collect")
         progressed = 0
         for iid in list(self._inflight):
             inst = self.instances.get(iid)
@@ -447,6 +490,8 @@ class ArrowEngineCluster(RuntimeCore):
                 progressed += 1
         # dispatch-all: every instance without an inflight step launches its
         # next fused step and returns immediately
+        if tr is not None:
+            phase = tr.next(phase, "step.dispatch")
         for iid, inst in list(self.instances.items()):
             if iid in self._inflight or iid not in self.instances:
                 continue
@@ -457,12 +502,22 @@ class ArrowEngineCluster(RuntimeCore):
         if not progressed and self._inflight:
             # nothing landed, nothing to launch: block on the oldest
             # inflight step rather than busy-spinning the host
+            if tr is not None:
+                phase = tr.next(phase, "step.block")
             self._finalize_now(next(iter(self._inflight)))
         # monitor tick
         now = self.clock.now()
+        if tr is not None:
+            tr.close(phase, now)
         if now - self._last_tick >= self.sched_cfg.monitor_interval:
             self._last_tick = now
+            if tr is not None:
+                phase = tr.open("step.monitor", t=now)
             self.collect_stats(now)
+            if tr is not None:
+                tr.close(phase)
+        if tr is not None:
+            tr.close(top)
         return bool(self._live or self._pending or self._inflight)
 
     def run_until(self, t: float) -> None:
@@ -507,6 +562,9 @@ class ArrowEngineCluster(RuntimeCore):
         if plan.is_empty:
             return None
         t_start = self.clock.now()
+        tr = self._tracer
+        if tr is not None:
+            span = tr.open("instance.dispatch", iid, t_start)
         chunks = []
         # the legacy baseline is the *pre-fusion* path faithfully: it
         # processed at most one prefill chunk per cooperative pass
@@ -535,18 +593,34 @@ class ArrowEngineCluster(RuntimeCore):
                 # (recovery re-runs this path, so a recovered stream keeps
                 # its keys — DESIGN.md §12)
                 inst.set_sampling(rid, handle.req.sampling)
+                if tr is not None:
+                    tr.record("request.queue", handle.req.arrival, t_start,
+                              rid)
             prompt = self._prompts[rid]
             chunks.append(ChunkWork(rid, start, ln,
                                     prompt[start:start + ln],
                                     handle.req.input_len))
         pending = inst.dispatch_step(plan.decode_rids, chunks)
         if pending is None:
+            if tr is not None:
+                tr.close(span)
             return None
         # t_disp closes this instance's own dispatch span; the finalize span
         # is measured separately so an instance's iteration duration (the
         # TPOT signal) and any injected slowdown never absorb the *other*
         # instances' dispatch/finalize work done in between
-        return pending, chunks, t_start, self.clock.now()
+        t_disp = self.clock.now()
+        if tr is not None:
+            tr.close(span, t_disp)
+            kv = inst.kv
+            tr.count(span, "decode_rows", len(plan.decode_rids))
+            tr.count(span, "batch_rows",
+                     kv.n_slots if plan.decode_rids else 0)
+            tr.count(span, "prompt_tokens", sum(cw.length for cw in chunks))
+            tr.count(span, "kv_tokens",
+                     sum(kv.len_of.get(r, 0) for r in kv.slot_of))
+            tr.count(span, "kv_reserved", kv.n_slots * inst.capacity)
+        return pending, chunks, t_start, t_disp
 
     def _finalize_instance_step(self, iid: int, inst: EngineInstance,
                                 ctx) -> None:
@@ -555,8 +629,13 @@ class ArrowEngineCluster(RuntimeCore):
         pending, chunks, t_start, t_disp = ctx
         slow = self.slow_factor(iid, t_start)    # injected lag (§8)
         t_fin0 = self.clock.now()
+        tr = self._tracer
+        if tr is not None:
+            fin = tr.open("instance.finalize", iid, t_fin0)
         done_tokens, chunk_tokens = inst.finalize_step(pending)
         t_after = self.clock.now()
+        if tr is not None:
+            emit = tr.open("instance.emit", iid, t_after)
         # this instance's own work: its dispatch span + its blocking fetch
         # (the device compute overlapped the other instances' phases)
         span = (t_disp - t_start) + (t_after - t_fin0)
@@ -612,6 +691,8 @@ class ArrowEngineCluster(RuntimeCore):
                 if cw.rid not in inst.local.retained:
                     inst.drop(cw.rid)
                 self._live.pop(cw.rid, None)
+        if tr is not None:
+            tr.close(fin, tr.close(emit))
         if slow > 1.0:                           # lagging instance (§8)
             time.sleep(min((slow - 1.0)
                            * max(self.clock.now() - t_fin0 + (t_disp - t_start),

@@ -210,6 +210,8 @@ class EngineInstance:
         # request bookkeeping
         self.last_token: Dict[int, int] = {}
         self.generated: Dict[int, List[int]] = {}
+        # the cluster's span recorder (core/trace.py), None when off
+        self.tracer = None
 
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device, non_blocking=True)
@@ -347,6 +349,12 @@ class EngineInstance:
             return None
         if self.step_mode == "legacy":
             return self._legacy_step(decode_rids, chunks)
+        # spans: instance.prepare while this method builds host arrays and
+        # uploads tokens, instance.launch over each fused_step call (its own
+        # host arrays and uploads, then the kernels' enqueue)
+        tr = self.tracer
+        if tr is not None:
+            span = tr.open("instance.prepare", self.iid)
         dec_args = None
         spec = None
         # speculative round: every active row must fit its k drafts plus
@@ -373,6 +381,8 @@ class EngineInstance:
                 active[s] = True
             samp = self._slot_samp_arrays(decode_rids)
             if use_spec:
+                if tr is not None:
+                    span = tr.next(span, "instance.launch", self.iid)
                 spec = fs.spec_decode(
                     self.cfg, self.draft_layers, self.speculate,
                     self.params, *self.kv.slabs(), self._dev(tokens), pos,
@@ -385,6 +395,8 @@ class EngineInstance:
                     dec_args += (active,)
         groups: List[Tuple[List[ChunkWork], Any]] = []
         for gi, (Sq, group) in enumerate(self._group_chunks(chunks)):
+            if tr is not None:
+                span = tr.next(span, "instance.prepare", self.iid)
             n = len(group)
             ctoks = np.zeros((n, Sq), np.int32)
             slots = np.zeros((n,), np.int32)
@@ -405,6 +417,8 @@ class EngineInstance:
                 crids[i] = cw.rid & 0x7FFFFFFF
             c_args = (self._dev(ctoks), slots, offsets, lens, ctemps, ctops,
                       cseeds, crids)
+            if tr is not None:
+                span = tr.next(span, "instance.launch", self.iid)
             if gi == 0 and dec_args is not None:
                 out = self._ops.mixed_step(
                     self.cfg, self.params, *self.kv.slabs(), *dec_args,
@@ -414,11 +428,16 @@ class EngineInstance:
                     self.cfg, self.params, *self.kv.slabs(), *c_args)
             groups.append((group, out))
         if not groups and dec_args is not None:
+            if tr is not None:
+                span = tr.next(span, "instance.launch", self.iid)
             out = self._ops.decode_only(
                 self.cfg, self.params, *self.kv.slabs(), *dec_args)
             groups.append(([], out))
-        return PendingStep(list(decode_rids), groups, spec=spec,
-                           decode_in_group0=dec_args is not None)
+        pending = PendingStep(list(decode_rids), groups, spec=spec,
+                              decode_in_group0=dec_args is not None)
+        if tr is not None:
+            tr.close(span)
+        return pending
 
     def finalize_step(self, pending) -> Tuple[Dict[int, Any],
                                               List[Tuple[int, Optional[int]]]]:
@@ -564,18 +583,29 @@ class EngineInstance:
                      checksum: Optional[int] = None) -> bool:
         # Verify before alloc so a corrupt payload leaves the importer's
         # state untouched and the sender can simply retry.
-        if checksum is not None and state_checksum(payload) != checksum:
-            raise CorruptPayload(self.iid, rid)
-        if self.kv.alloc(rid) is None:
-            return False
-        if sampling is not None:
-            # the source slot's sampling state rides along with the state,
-            # so a migrated stream keeps its key derivation
-            self.kv.samp_of[rid] = tuple(sampling)
-        self.kv.place_state(rid, payload, L)
-        self.last_token[rid] = last_token
-        self.generated[rid] = list(generated)
-        return True
+        tr = self.tracer
+        if checksum is not None:
+            if tr is not None:
+                span = tr.open("migration.checksum", rid)
+            corrupt = state_checksum(payload) != checksum
+            if tr is not None:
+                tr.close(span)
+            if corrupt:
+                raise CorruptPayload(self.iid, rid)
+        if tr is not None:
+            span = tr.open("migration.import", rid)
+        ok = self.kv.alloc(rid) is not None
+        if ok:
+            if sampling is not None:
+                # the source slot's sampling state rides along with the
+                # state, so a migrated stream keeps its key derivation
+                self.kv.samp_of[rid] = tuple(sampling)
+            self.kv.place_state(rid, payload, L)
+            self.last_token[rid] = last_token
+            self.generated[rid] = list(generated)
+        if tr is not None:
+            tr.close(span)
+        return ok
 
     def export_kv(self, rid: int):
         """Dense-layout export kept for compatibility (tests, tools):
