@@ -8,6 +8,9 @@ one model at a time:
   ssm    mamba2-370m (48 layers): ssd_scan
   hybrid recurrentgemma-9b (38 layers): rglru_scan
 
+and on every path crc32, the checksum of each migration's state on the card
+(it is also checked against zlib at qwen3-1.7b's 0.2, 0.52 and 1.87 GB
+migration images, ragged lengths and a chain, before the engine paths).
 For each it compares the kernel path's logits with the reference path's on
 the same weights and tokens, then serves 8 requests through
 ``ArrowEngineCluster`` (2 instances, Arrow policy, prefill -> decode state
@@ -24,9 +27,11 @@ Then the runtime phase drives Arrow's runtime mechanisms at full width
 bench_chaos's engine leg with transfer drops, netslow and a crash that is
 sure to fire (the crash and a retry asserted; in float32 every stream
 equal to its sequential reference, in bf16 the equal ones counted); in
-float32 also the corrupt-copy path (a flipped byte refused before a slot
-is taken, the pristine pinned payload landing), deflection at its state
-barrier and multi-turn prefix reuse (placements, counters and hits equal
+float32 also the corrupt-copy path (the export's checksum, taken on the
+card, equal to zlib's over the pinned payload; a flipped byte refused
+before a slot is taken, the pristine pinned payload landing; one launch
+at export and one at each import), deflection at its state barrier and
+multi-turn prefix reuse (placements, counters and hits equal
 to the port's simulator's; streams equal with the mechanism on and off),
 SLO-aware preemption at a blocked memory gate, and an arrow_elastic run
 that spawns an instance mid-serve (its wall time printed). Then
@@ -71,8 +76,9 @@ DTensor wrappers; then ``repro_torch.launch.dryrun`` in subprocesses off
 the card (qwen3-1.7b x train_4k, prefill_32k, decode_32k; olmoe-1b-7b x
 train_4k with expert parallelism), each record printed.
 
-Last, the bench phase: ``repro_torch.bench.bench_kernels`` times the five
-kernels on the card at the JAX bench's shapes and at the main paths',
+Last, the bench phase: ``repro_torch.bench.bench_kernels`` times the six
+kernels on the card at the JAX bench's shapes and at the main paths'
+(crc32 at the three migration images, beside zlib on the same bytes),
 each held to its plain version (its launches join the kernels line, and
 its times at the main paths' shapes, the cases the kernel checks began
 with, are the line's), and
@@ -137,7 +143,14 @@ KERNELS = {
         "rglru_scan_op",
         "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
         "src/repro/kernels/rglru_scan/rglru_scan.py:60"),
+    "crc32": (
+        "crc32_op",
+        "src/repro_torch/kernels/crc32/csrc/crc32.cu",
+        "none (src/repro/engine/instance.py checksums with zlib on the "
+        "host)"),
 }
+# bench_kernels' crc32 row the kernels line reports: the code mix's mean
+CRC_MAIN = "migration_code_mean"
 
 
 def main_cases() -> dict:
@@ -364,6 +377,51 @@ def check_scan_kernels(cases: dict):
                        "(1,160,4096), (8,256,4096), (1,1024,4096), "
                        "(1,1,4096)", pairs, RGLRU_TOL))
     return rows
+
+
+def check_crc_kernel() -> dict:
+    """crc32 vs zlib on the card, each CRC compared as its four bytes:
+    bench_kernels' migration images (k then v stacked, bf16, 0.2, 0.52 and
+    1.87 GB) against the plain version and zlib, twelve ragged lengths
+    chained from a nonzero CRC, an unaligned start, and a chain of three
+    tensors of bf16, float32 and uint8."""
+    import zlib
+    from repro_torch.bench.bench_kernels import cases, check, crc_bytes
+    from repro_torch.engine.instance import state_checksum
+    from repro_torch.kernels import crc32_op
+    from repro_torch.kernels.crc32.ops import kernel_attrs
+    from repro_torch.kernels.crc32.ref import BLOCK_BYTES, TILE, UNIT
+    dev = torch.device("cuda")
+    pairs, label = [], None
+    for case in cases("migration", dev):
+        got, want, _, _ = check(case)
+        pairs += list(zip(got, want))
+        pairs.append((got[0], case.host(*(t.cpu() for t in case.inputs))))
+        if case.label.startswith(CRC_MAIN):
+            label = case.label
+        del case
+    rng = np.random.default_rng(4)
+    for n in (0, 1, 3, 15, 16, 17, UNIT + 1, TILE - 1, BLOCK_BYTES,
+              BLOCK_BYTES + 1, 3 * BLOCK_BYTES + 7717,
+              1031 * BLOCK_BYTES - 16):
+        data = rng.integers(0, 256, n, dtype=np.uint8)
+        pairs.append((
+            crc_bytes(crc32_op(torch.from_numpy(data).to(dev), 0xCAFEF00D)),
+            crc_bytes(zlib.crc32(data.tobytes(), 0xCAFEF00D))))
+    data = torch.from_numpy(rng.integers(0, 256, 1 << 20, dtype=np.uint8))
+    pairs.append((crc_bytes(crc32_op(data.to(dev)[3:])),
+                  crc_bytes(zlib.crc32(data[3:].numpy()))))
+    ts = [torch.randn(300001).to(torch.bfloat16), torch.randn(300002),
+          torch.randint(0, 256, (300003,), dtype=torch.uint8)]
+    chained = 0
+    for t in ts:
+        chained = zlib.crc32(t.view(torch.uint8).numpy(), chained)
+    pairs.append((crc_bytes(state_checksum([t.to(dev) for t in ts])),
+                  crc_bytes(chained)))
+    log({"crc32_blocks": kernel_attrs()["crc32_blocks"]})
+    return report("crc32", f"{label}; + 0.2 and 1.87 GB, + 12 ragged "
+                  "lengths chained, + an unaligned start, + a 3-tensor "
+                  "chain", pairs, 0.0)
 
 
 def check_sampler():
@@ -680,19 +738,23 @@ def record_placements(cluster):
 
 def check_corrupt_wire(cfg, params) -> dict:
     """The corrupt-copy path on the card: an exported payload sits in
-    pinned host memory, a clone with one flipped byte fails the checksum
-    (the importer refuses it before taking a slot), and the pristine
-    payload then lands."""
+    pinned host memory and its checksum, taken on the card at export, is
+    zlib's over the pinned bytes; a clone with one flipped byte fails the
+    checksum the importer takes on the card after uploading it (refused
+    before a slot is taken), and the pristine payload then lands: the
+    kernel launched once at export (k and v stacked) and once at each
+    import (the wire uploaded as one image), two launches an attempt."""
     from repro_torch.engine import EngineInstance
     from repro_torch.engine.instance import CorruptPayload, state_checksum
+    from repro_torch.kernels import crc32_op
     a = EngineInstance(0, cfg, params, n_slots=2, capacity=128, device="cuda")
     b = EngineInstance(1, cfg, params, n_slots=2, capacity=128, device="cuda")
     prompt = np.arange(1, 25, dtype=np.int32)
     a.run_prefill(7, prompt)
     a.local.start_local_decode(7, len(prompt), 4)
     a.run_decode_iteration([7])
-    payload, L, last, gen = a.export_state(7)
-    good = state_checksum(payload)
+    before = crc32_op.launches
+    payload, L, last, gen, good = a.export_state(7)
     wire = [p.clone() for p in payload]
     wire[0].view(torch.uint8).view(-1)[0] ^= 0xFF
     refused = False
@@ -702,6 +764,9 @@ def check_corrupt_wire(cfg, params) -> dict:
         refused = 7 not in b.kv.slot_of
     ok = b.import_state(7, payload, L, last, list(gen), checksum=good)
     out = {"pinned": all(p.is_pinned() for p in payload),
+           "card_crc_is_zlibs": good == state_checksum(payload),
+           "kernel_at_export_and_imports":
+               crc32_op.launches - before == 3,
            "corrupt_crc_differs": state_checksum(wire) != good,
            "refused_before_alloc": refused, "pristine_landed": bool(ok)}
     log({"corrupt_wire": out})
@@ -1018,7 +1083,7 @@ def runtime_phase(smi: str) -> dict:
     set to 0 before and read after; each kernel of the two paths must have
     run."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import (flash_chunk_op, flash_seq_op,
+    from repro_torch.kernels import (crc32_op, flash_chunk_op, flash_seq_op,
                                      launch_counts, paged_attention_op,
                                      reset_launch_counts, ssd_scan_op)
     from repro_torch.weights import init_params
@@ -1048,7 +1113,7 @@ def runtime_phase(smi: str) -> dict:
                                k: v["streams_equal"]
                                for k, v in chaos.items()}}})
     idle = [w.__name__ for w in (flash_seq_op, flash_chunk_op,
-                                 paged_attention_op, ssd_scan_op)
+                                 paged_attention_op, ssd_scan_op, crc32_op)
             if counts[w.__name__] == 0]
     if idle:
         raise AssertionError(f"kernels never launched in the runtime "
@@ -1987,20 +2052,22 @@ def dist_phase(smi: str) -> dict:
 def paths():
     """(arch, the kernels its engine path must launch, the profiler tags of
     those kernels) for each path, in the order they run."""
-    from repro_torch.kernels import (flash_chunk_op, flash_seq_op,
+    from repro_torch.kernels import (crc32_op, flash_chunk_op, flash_seq_op,
                                      paged_attention_op, rglru_scan_op,
                                      ssd_scan_op)
-    return (("qwen3-1.7b", (flash_seq_op, flash_chunk_op, paged_attention_op),
+    return (("qwen3-1.7b", (flash_seq_op, flash_chunk_op, paged_attention_op,
+                            crc32_op),
              ("flash_fwd", "paged_decode", "paged_merge")),
-            ("mamba2-370m", (ssd_scan_op,), ("ssd_cb", "ssd_chunk",
-                                            "ssd_state")),
-            ("recurrentgemma-9b", (rglru_scan_op,), ("rglru_cluster",
-                                                     "rglru_channel")))
+            ("mamba2-370m", (ssd_scan_op, crc32_op), ("ssd_cb", "ssd_chunk",
+                                                      "ssd_state")),
+            ("recurrentgemma-9b", (rglru_scan_op, crc32_op),
+             ("rglru_cluster", "rglru_channel")))
 
 
 def bench_phase(smi: str) -> dict:
-    """repro_torch.bench.bench_kernels on the card (the five kernels at the
-    JAX bench's shapes and the main paths', each against its plain
+    """repro_torch.bench.bench_kernels on the card (the six kernels at the
+    JAX bench's shapes, the main paths' and the migrations', each against
+    its plain
     version: one outside its tolerance fails), then repro_torch.bench's
     roofline over the records the distributed phase's dry-runs wrote:
     decode must not be compute-bound. Returns the kernels' launches and
@@ -2023,7 +2090,7 @@ def bench_phase(smi: str) -> dict:
         raise AssertionError(f"decode_32k missing or compute-bound: "
                              f"{decode}")
     return counts, {r["name"]: r for r in rows
-                    if r["shape"].startswith("main_")}
+                    if r["shape"].startswith(("main_", CRC_MAIN))}
 
 
 def kernel_row(check: dict, timed: dict, counts: dict) -> dict:
@@ -2090,7 +2157,7 @@ def main() -> int:
     with phase(phases, "kernel_checks"):
         cases = main_cases()
         rows = check_kernels(get_config("qwen3-1.7b"), cases) \
-            + check_scan_kernels(cases)
+            + check_scan_kernels(cases) + [check_crc_kernel()]
         del cases
     with phase(phases, "sampler"):
         check_sampler()
@@ -2113,7 +2180,9 @@ def main() -> int:
                     check_recurrent_model(cfg, params)
             with part(parts, "serve"):
                 cluster, c, streams = serve(cfg, params, expect)
-            counts.update({w.__name__: c[w.__name__] for w in expect})
+            for w in expect:                # crc32 runs on every path
+                counts[w.__name__] = counts.get(w.__name__, 0) \
+                    + c[w.__name__]
             fused = cluster.report()
             with part(parts, "profile_round"):
                 profile_round(cluster, cfg, tags)

@@ -1,8 +1,8 @@
-"""Micro-benchmarks of the five Hopper kernels against their plain-torch
+"""Micro-benchmarks of the six Hopper kernels against their plain-torch
 versions, the port's ``benchmarks/bench_kernels.py``.
 
 On the card (``--device cuda``, the default) each kernel is timed through
-its wrapper at two sets of shapes:
+its wrapper at three sets of shapes:
 
   bench  the JAX bench's own, float32: flash (1,4,256,64) with 2 kv heads
          (and the same heads for flash_prefill_dyn: 64 queries at offset
@@ -14,7 +14,11 @@ its wrapper at two sets of shapes:
          slots, paged decode over 8 slots of 1024 in pages of 128 (bf16),
          a 256-token chunk of mamba2-370m through ssd_scan and of
          recurrentgemma-9b through rglru_scan from a random state
-         (float32).
+         (float32);
+  migration  crc32 over qwen3-1.7b's migration images (k then v stacked,
+         bf16) of 1736, 4573 and 16320 tokens: 0.2 GB (the ``conv``
+         mix's), 0.52 GB (the ``code`` mix's mean) and 1.87 GB (its
+         longest prompt); on the CPU 1/1024 of those tokens.
 
 Each row: ``kernel.<name>.<set>_<shape>,<us_per_call>,<derived>`` where
 ``us_per_call`` is the kernel's CUDA-event time per call (host included),
@@ -22,14 +26,17 @@ Each row: ``kernel.<name>.<set>_<shape>,<us_per_call>,<derived>`` where
 the plain version's and ``library_us`` that of the one PyTorch call that
 computes the same function (``scaled_dot_product_attention`` for the two
 flash routes, and for paged decode over K/V gathered beforehand by the
-page table; none for the scans), each device time, inputs cycling through
-more than 160 MB of copies. ``bound_us`` is the larger of the call's bytes
+page table; none for the scans and crc32), each device time, inputs
+cycling through more than 160 MB of copies; crc32's rows add ``host_us``,
+``zlib.crc32`` over the same bytes already on the host (the host path the
+kernel replaced, less its copy to host bytes), the least of three calls. ``bound_us`` is the larger of the call's bytes
 (inputs read once, outputs written once) over the memory rate and its
 operations over the peak of their type (float32 products at the 3xTF32
 tensor-core rate, the RG-LRU's elementwise multiply-add at the CUDA-core
 rate). ``max_abs_err`` is against the
-plain version; a kernel outside its tolerance fails the run. The card's
-name and power limit close each row.
+plain version (crc32's: the CRC's four bytes, which must be equal); a
+kernel outside its tolerance fails the run. The card's name and power
+limit close each row.
 
 On the CPU (``--device cpu``) only the plain versions run, timed on the
 host clock, and each row says so. ``--device cuda`` without a card exits
@@ -52,15 +59,19 @@ from repro_torch.bench.common import (BF16_FLOPS, BF16_TOL, F32_FLOPS,
                                       TF32X3_FLOPS, bound, copies,
                                       device_info, emit, max_err, nbytes,
                                       save_json, time_ms, within)
-from repro_torch.kernels import (flash_chunk_op, flash_seq_op,
+from repro_torch.kernels import (crc32_op, flash_chunk_op, flash_seq_op,
                                  paged_attention_op, rglru_scan_op,
                                  ssd_scan_op)
+from repro_torch.kernels.crc32 import crc32_host, crc32_ref
 from repro_torch.kernels.flash_prefill import flash_prefill_ref
 from repro_torch.kernels.paged_attention import paged_attention_ref
 from repro_torch.kernels.rglru_scan import rglru_scan_ref
 from repro_torch.kernels.ssd_scan import ssd_scan_ref
 
-SETS = ("bench", "main")
+SETS = ("bench", "main", "migration")
+# qwen3-1.7b's migrated positions: the conv mix's 199 MB, the code mix's
+# 524 MB mean and 1.87 GB longest prompt (2 x 28 x 8 x 128 bf16 a token)
+MIGRATION_TOKENS = {"conv": 1736, "code_mean": 4573, "code_max": 16320}
 ITERS = {"kernel": 200, "plain": 50, "library": 200}
 
 
@@ -77,6 +88,7 @@ class Case(NamedTuple):
     flops: float
     peak: float
     plain_iters: int = ITERS["plain"]
+    host: Optional[Callable] = None   # timed on host copies of the inputs
 
 
 def bhsd(t):
@@ -204,6 +216,25 @@ def rglru_case(set_: str, dev, g, B, S, W, with_h0: bool):
         flops=2.0 * B * S * W, peak=F32_FLOPS)
 
 
+def crc_bytes(crc: int) -> torch.Tensor:
+    """A CRC as its four bytes, so ``check`` compares it exactly."""
+    return torch.tensor(list(crc.to_bytes(4, "little")), dtype=torch.float32)
+
+
+def crc_case(set_: str, dev, g, key: str, tokens: int):
+    """crc32 over a migration image of ``tokens`` positions: k then v
+    stacked, (2, 28 layers, tokens, 8 kv heads, 128), bf16."""
+    img = torch.randn((2, 28, tokens, 8, 128), generator=g,
+                      device=dev).to(torch.bfloat16)
+    return Case(
+        name="crc32", label=f"{set_}_{key}_t{tokens}_bf16", inputs=(img,),
+        kernel=lambda t: crc_bytes(crc32_op(t)),
+        plain=lambda t: crc_bytes(crc32_ref(t)), library=None,
+        lib_inputs=None, tol=0.0, bytes=nbytes(img), flops=0.0,
+        peak=BF16_FLOPS, plain_iters=2,
+        host=lambda t: crc_bytes(crc32_host(t)))
+
+
 def dtype_tag(dtype) -> str:
     return {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
 
@@ -219,9 +250,13 @@ def peak_for(dtype) -> float:
 
 
 def cases(set_: str, dev) -> list:
-    """The five kernels' cases at one set of shapes."""
+    """The kernels' cases at one set of shapes."""
     g = torch.Generator(device=dev).manual_seed(0)
     f32, bf = torch.float32, torch.bfloat16
+    if set_ == "migration":
+        scale = 1 if dev.type == "cuda" else 1024
+        return [crc_case(set_, dev, g, k, max(1, n // scale))
+                for k, n in MIGRATION_TOKENS.items()]
     if set_ == "bench":
         return [
             flash_case(set_, dev, g, f32, 1, 256, 4, 2, 64),
@@ -267,6 +302,10 @@ def run_card(case: Case, card: str) -> dict:
     if case.library is not None:
         lib_sets = [case.lib_inputs(*s) for s in sets]
         lib_ms, _ = time_ms(case.library, lib_sets, ITERS["library"])
+    host_ms = None
+    if case.host is not None:
+        host_in = [t.cpu() for t in case.inputs]
+        host_ms = min(host_call_ms(case.host, host_in) for _ in range(3))
     b_ms, b_by = bound(case.bytes, case.flops, case.peak)
     row = {"name": case.name, "shape": case.label,
            "us_per_call": call_ms * 1e3, "device_us": dev_ms * 1e3,
@@ -275,11 +314,21 @@ def run_card(case: Case, card: str) -> dict:
            "bound_us": b_ms * 1e3, "bound_by": b_by, "max_abs_err": err,
            "tol": case.tol, "within_tol": ok, "card": card}
     lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.3f}"
+    host = ""
+    if host_ms is not None:
+        row["host_us"] = host_ms * 1e3
+        host = f"host_us={row['host_us']:.3f};"
     emit(f"kernel.{case.name}.{case.label}", row["us_per_call"],
          f"device_us={row['device_us']:.3f};ref_us={row['ref_us']:.3f};"
-         f"library_us={lib};bound_us={row['bound_us']:.3f}({b_by});"
+         f"library_us={lib};{host}bound_us={row['bound_us']:.3f}({b_by});"
          f"max_abs_err={err:.3g};tol={case.tol:g};card={card}")
     return row
+
+
+def host_call_ms(fn, args) -> float:
+    t0 = time.perf_counter()
+    fn(*args)
+    return (time.perf_counter() - t0) * 1e3
 
 
 def run_cpu(case: Case) -> dict:

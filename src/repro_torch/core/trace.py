@@ -42,9 +42,10 @@ What the engine records (``engine/cluster.py``, ``engine/instance.py``):
 - ``migration`` (rid), one ``_begin_transfer``, with children
   ``migration.land`` (both endpoints' inflight steps finalized),
   ``migration.export``, ``migration.checksum`` (at export, and again at
-  each import's verification) and ``migration.import`` (slot allocation
-  and placement), and the counter ``completed`` on a transfer that landed
-  (its bytes are ``migration_log``'s).
+  each import's verification) and ``migration.import`` (the wire image's
+  upload to the destination's device before each verification, then
+  slot allocation and placement), and the counter ``completed`` on a
+  transfer that landed (its bytes are ``migration_log``'s).
 """
 from __future__ import annotations
 

@@ -42,7 +42,7 @@ from repro_torch.core.serving import (FinishCallback, RequestHandle,
 from repro_torch.core.trace import Tracer
 from repro_torch.engine.instance import (ChunkWork, CorruptPayload,
                                          EngineInstance, NoFreeSlots,
-                                         resolve_device, state_checksum)
+                                         resolve_device)
 from repro_torch.weights import init_params
 
 
@@ -169,17 +169,14 @@ class ArrowEngineCluster(RuntimeCore):
             self._finalize_now(src)
             self._finalize_now(dst)
             if tr is not None:
-                sub = tr.next(sub, "migration.export", rid)
-            samp = self.instances[src].kv.samp_of.get(rid)
-            payload, L, last, gen = self.instances[src].export_state(rid)
-            # end-to-end integrity (§14): checksum at export, verify at
-            # import. The source slot is retained until complete_migration
-            # acknowledges, so every retry re-sends pristine state.
-            if tr is not None:
-                sub = tr.next(sub, "migration.checksum", rid)
-            checksum = state_checksum(payload)
-            if tr is not None:
                 tr.close(sub)
+            samp = self.instances[src].kv.samp_of.get(rid)
+            # end-to-end integrity (§14): checksum at export (on the
+            # source's own image of the state), verify at import. The
+            # source slot is retained until complete_migration
+            # acknowledges, so every retry re-sends pristine state.
+            payload, L, last, gen, checksum = \
+                self.instances[src].export_state(rid)
             while True:
                 nf = self.netslow_factor(self.clock.now())
                 if nf > 1.0:              # degraded interconnect window (§14)

@@ -27,7 +27,6 @@ RecurrentGemma.
 from __future__ import annotations
 
 import time
-import zlib
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -37,7 +36,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.local_scheduler import LocalScheduler
 from repro_torch.engine import fused_step as fs
-from repro_torch.engine.state_slots import make_state_slots
+from repro_torch.engine.state_slots import (byte_image, make_state_slots,
+                                            split_image)
+from repro_torch.kernels.crc32 import crc32_op
 from repro_torch.models import dense
 
 
@@ -69,12 +70,13 @@ class CorruptPayload(RuntimeError):
 
 
 def state_checksum(payload) -> int:
-    """CRC32 over the migration payload's raw bytes, chained across
-    tensors (equal to the JAX package's CRC over the same values)."""
+    """zlib's CRC32 over the migration payload's raw bytes, chained across
+    tensors (equal to the JAX package's CRC over the same values). Each
+    tensor is read where it lies: on the card by the ``crc32`` kernel, on
+    the host by ``zlib``."""
     crc = 0
     for p in payload:
-        raw = torch.as_tensor(p).contiguous().view(torch.uint8)
-        crc = zlib.crc32(raw.cpu().numpy().tobytes(), crc)
+        crc = crc32_op(torch.as_tensor(p), crc)
     return crc
 
 
@@ -573,27 +575,44 @@ class EngineInstance:
     # --------------------------------------------------------- transfer
     def export_state(self, rid: int):
         """Family-agnostic migration export: (payload host tensors, context
-        length, last token, generated tokens). ``sum(p.nbytes)`` over the
-        payload is the real wire size."""
-        payload, L = self.kv.extract_state(rid)
-        return payload, L, self.last_token[rid], self.generated[rid]
+        length, last token, generated tokens, checksum). The checksum is
+        the payload's ``state_checksum``, taken once on the slots' own
+        image of the state where it lies (on the card, by the kernel).
+        ``sum(p.nbytes)`` over the payload is the real wire size."""
+        tr = self.tracer
+        if tr is not None:
+            span = tr.open("migration.export", rid)
+        image, L = self.kv.state_image(rid)
+        payload = self.kv.to_payload(image)
+        if tr is not None:
+            span = tr.next(span, "migration.checksum", rid)
+        crc = crc32_op(image)
+        if tr is not None:
+            tr.close(span)
+        return payload, L, self.last_token[rid], self.generated[rid], crc
 
     def import_state(self, rid: int, payload, L: int, last_token: int,
                      generated: List[int], sampling=None,
                      checksum: Optional[int] = None) -> bool:
-        # Verify before alloc so a corrupt payload leaves the importer's
-        # state untouched and the sender can simply retry.
+        # With a checksum, the wire lands on this instance's device as one
+        # image, is verified there before alloc (so a corrupt payload
+        # leaves the importer's state untouched and the sender can simply
+        # retry), then placed from that image.
         tr = self.tracer
-        if checksum is not None:
-            if tr is not None:
-                span = tr.open("migration.checksum", rid)
-            corrupt = state_checksum(payload) != checksum
-            if tr is not None:
-                tr.close(span)
-            if corrupt:
-                raise CorruptPayload(self.iid, rid)
         if tr is not None:
             span = tr.open("migration.import", rid)
+        if checksum is not None:
+            image = byte_image(payload, self.device)
+            if tr is not None:
+                span = tr.next(span, "migration.checksum", rid)
+            if crc32_op(image) != checksum:
+                if tr is not None:
+                    tr.close(span)
+                raise CorruptPayload(self.iid, rid)
+            if tr is not None:
+                span = tr.next(span, "migration.import", rid)
+            payload = split_image(image,
+                                  [(p.shape, p.dtype) for p in payload])
         ok = self.kv.alloc(rid) is not None
         if ok:
             if sampling is not None:

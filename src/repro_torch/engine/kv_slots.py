@@ -8,9 +8,9 @@ contiguous pages of the paged-attention pool.
 The slabs are allocated once and every slot operation (place / copy_prefix /
 release) and every fused step writes them **in place**, where the JAX
 package donated them to jitted functions; only the legacy step works on a
-full copy (``as_model_cache``), as the pre-fusion baseline did. ``extract``
-stacks k and v into one device tensor so a KV export costs a single
-device-to-host copy.
+full copy (``as_model_cache``), as the pre-fusion baseline did. A KV
+export stacks k and v into one device tensor (``state_image``), so it
+costs a single device-to-host copy and a single checksum launch.
 """
 from __future__ import annotations
 
@@ -83,15 +83,19 @@ class SlotKVCache(StateSlotsBase):
         """For KV transfer to another instance: (k (L,S,Hk,D), v, length)
         as host tensors — one stacked device-to-host copy (into pinned
         memory when the slabs are on the card)."""
-        s = self.slot_of[rid]
-        L = self.len_of[rid]
-        kv = host_copy(torch.stack([self.k[:, s, :L], self.v[:, s, :L]]))
-        return kv[0], kv[1], L
+        (k, v), L = self.extract_state(rid)
+        return k, v, L
 
     # ---------------------------------------- family-agnostic migration
-    def extract_state(self, rid: int):
-        k, v, L = self.extract(rid)
-        return [k, v], L
+    def state_image(self, rid: int):
+        # k then v stacked: one tensor, so one copy to the host
+        s = self.slot_of[rid]
+        L = self.len_of[rid]
+        return torch.stack([self.k[:, s, :L], self.v[:, s, :L]]), L
+
+    def to_payload(self, image):
+        kv = host_copy(image)
+        return [kv[0], kv[1]]
 
     def place_state(self, rid: int, payload, length: int) -> None:
         k, v = payload

@@ -20,10 +20,12 @@ relies on: slot operations write the preallocated slabs in place, a
 released slot's recurrent state is zeroed (so the next occupant chunks from
 a zero state), and ``extract_state``/``place_state`` give the cluster a
 family-agnostic migration transfer (the payload's ``nbytes`` is the real
-wire cost that ``RuntimeCore`` records).
+wire cost that ``RuntimeCore`` records) whose bytes ``state_image`` holds
+as one tensor on the device before their single copy to the host.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -40,6 +42,34 @@ def host_copy(t: torch.Tensor) -> torch.Tensor:
     buffer of its own. A host tensor is copied into ordinary memory."""
     return torch.empty(t.shape, dtype=t.dtype,
                        pin_memory=t.is_cuda).copy_(t)
+
+
+def byte_image(parts, device) -> torch.Tensor:
+    """``parts``' raw bytes back to back in one uint8 tensor on
+    ``device``: a payload of any number of tensors lands as one image, so
+    it is checksummed once."""
+    flat = [p.contiguous().reshape(-1).view(torch.uint8) for p in parts]
+    out = torch.empty(sum(f.numel() for f in flat), dtype=torch.uint8,
+                      device=device)
+    off = 0
+    for f in flat:
+        # blocking: the upload ends here, so the checksum that follows
+        # times the checksum alone
+        out[off:off + f.numel()].copy_(f)
+        off += f.numel()
+    return out
+
+
+def split_image(image: torch.Tensor, like) -> List[torch.Tensor]:
+    """Views of ``image``'s bytes as the tensors of ``like``'s (shape,
+    dtype) pairs, in order (each tensor's byte offset a multiple of its
+    item size, as the slots' payloads have them)."""
+    out, off = [], 0
+    for shape, dtype in like:
+        n = math.prod(shape) * dtype.itemsize
+        out.append(image[off:off + n].view(dtype).view(shape))
+        off += n
+    return out
 
 
 class StateSlotsBase:
@@ -97,11 +127,23 @@ class StateSlotsBase:
         raise NotImplementedError
 
     # --------------------------------------------------------- migration
+    def state_image(self, rid: int) -> Tuple[torch.Tensor, int]:
+        """(one contiguous tensor on the slots' device whose bytes are the
+        migration payload's, in order; context length): what the export
+        checksums and :meth:`to_payload` copies to the host."""
+        raise NotImplementedError
+
+    def to_payload(self, image: torch.Tensor) -> List[torch.Tensor]:
+        """The payload's host tensors over one host copy of
+        :meth:`state_image`'s tensor."""
+        raise NotImplementedError
+
     def extract_state(self, rid: int) -> Tuple[List[torch.Tensor], int]:
         """(payload host tensors, context length) — the family-agnostic
         migration export; ``sum(p.nbytes for p in payload)`` is the real
         transfer size."""
-        raise NotImplementedError
+        image, L = self.state_image(rid)
+        return self.to_payload(image), L
 
     def place_state(self, rid: int, payload: List[torch.Tensor],
                     length: int) -> None:
@@ -128,12 +170,16 @@ class _FixedStateSlots(StateSlotsBase):
         for a, axis in self._leaves():
             a.select(axis, slot).zero_()
 
-    def extract_state(self, rid: int):
+    def state_image(self, rid: int):
+        # every slab row's bytes in one tensor: one checksum, one copy out
         s = self.slot_of[rid]
-        payload = []
-        for a, axis in self._leaves():
-            payload.append(host_copy(a.select(axis, s)))
-        return payload, self.len_of[rid]
+        rows = [a.select(axis, s) for a, axis in self._leaves()]
+        return byte_image(rows, rows[0].device), self.len_of[rid]
+
+    def to_payload(self, image):
+        return split_image(host_copy(image),
+                           [(a.select(axis, 0).shape, a.dtype)
+                            for a, axis in self._leaves()])
 
     def place_state(self, rid: int, payload, length: int) -> None:
         s = self.slot_of[rid]

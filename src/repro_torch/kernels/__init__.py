@@ -13,11 +13,14 @@ allocation, launch counting; plain torch on CPU tensors) and ``ref.py``
                     (ssm family)
   rglru_scan      — the RG-LRU recurrence of every prefill chunk (hybrid
                     family)
+  crc32           — zlib's CRC-32 of a migration payload where it lies
+                    (every family; no TPU counterpart)
 
 The kernels have no backward: on CUDA inputs that require grad a wrapper
 raises (``_build.refuse_grad``) rather than return an output cut off from
 autograd. The plain versions on the CPU are differentiable.
 """
+from repro_torch.kernels.crc32 import crc32_op  # noqa: F401
 from repro_torch.kernels.flash_prefill import (flash_chunk_op,  # noqa: F401
                                                flash_seq_op)
 from repro_torch.kernels.paged_attention import paged_attention_op  # noqa: F401
@@ -25,7 +28,7 @@ from repro_torch.kernels.rglru_scan import rglru_scan_op  # noqa: F401
 from repro_torch.kernels.ssd_scan import ssd_scan_op  # noqa: F401
 
 WRAPPERS = (flash_seq_op, flash_chunk_op, paged_attention_op, ssd_scan_op,
-            rglru_scan_op)
+            rglru_scan_op, crc32_op)
 
 
 def reset_launch_counts() -> None:

@@ -34,6 +34,7 @@ SOURCES = {
                         / "paged_attention.cu"),
     "ssd_scan": _HERE / "ssd_scan" / "csrc" / "ssd_scan.cu",
     "rglru_scan": _HERE / "rglru_scan" / "csrc" / "rglru_scan.cu",
+    "crc32": _HERE / "crc32" / "csrc" / "crc32.cu",
 }
 SM_COUNT = 132           # H100 SXM: the grids the launch plans aim to fill
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,7 +1,7 @@
 """The port's ``bench_kernels`` and ``roofline``.
 
 On the CPU ``bench_kernels`` times only the plain versions, one row per
-kernel and shape; ``--device cuda`` without a card refuses. ``roofline``
+kernel and shape (crc32's at 1/1024 of its migration payloads); ``--device cuda`` without a card refuses. ``roofline``
 reads a ``decode_32k`` record that the port's dry-run writes into a
 temporary directory (under a time limit of its own) and finds decode not
 compute-bound. ``model_flops`` equals the JAX package's
@@ -34,6 +34,9 @@ from repro_torch.launch import dryrun  # noqa: E402
 
 KERNELS = ("flash_prefill", "flash_prefill_dyn", "paged_attention",
            "ssd_scan", "rglru_scan")
+# each set's rows: the five at the bench's and the main paths' shapes,
+# crc32 at three migration payloads
+ROWS = {"bench": KERNELS, "main": KERNELS, "migration": ("crc32",) * 3}
 
 
 @pytest.fixture
@@ -82,7 +85,8 @@ def capture(fn, *args):
 def test_bench_kernels_cpu_emits_one_plain_row_per_kernel_and_shape(
         results, one_thread):
     rows, lines = capture(bench_kernels.main, ["--device", "cpu"])
-    assert len(lines) == len(KERNELS) * len(bench_kernels.SETS)
+    assert tuple(ROWS) == bench_kernels.SETS
+    assert len(lines) == sum(len(v) for v in ROWS.values())
     seen = set()
     for line in lines:
         name, us, derived = line.split(",", 2)
@@ -90,7 +94,7 @@ def test_bench_kernels_cpu_emits_one_plain_row_per_kernel_and_shape(
         seen.add((kernel, label.split("_", 1)[0]))
         assert float(us) > 0
         assert derived.startswith("plain version only (cpu")
-    assert seen == {(k, s) for k in KERNELS for s in bench_kernels.SETS}
+    assert seen == {(k, s) for s, ks in ROWS.items() for k in ks}
     assert all(r["plain_only"] for r in rows)
     saved = json.loads((results / "kernels.json").read_text())
     assert saved["device"] == "cpu" and len(saved["rows"]) == len(lines)
@@ -119,7 +123,7 @@ def test_bench_kernels_on_the_card(results):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rows = bench_kernels.main(["--device", "cuda"])
-    assert len(rows) == len(KERNELS) * len(bench_kernels.SETS)
+    assert len(rows) == sum(len(v) for v in ROWS.values())
     assert all(r["within_tol"] for r in rows)
 
 

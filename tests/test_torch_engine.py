@@ -190,7 +190,7 @@ def test_checksum_and_cross_framework_migration(setup):
         got.append(dst.run_decode_iteration([7])[7])
     assert got == ref
     # and the torch export of the continued state checksums consistently
-    tp, _, _, _ = dst.export_state(7)
+    tp, *_ = dst.export_state(7)
     assert state_checksum(tp) == jax_checksum([p.numpy() for p in tp])
 
 
@@ -220,7 +220,7 @@ def test_slot_kv_state_bytes_matches_jax(setup):
     inst = EngineInstance(0, tcfg, tparams, n_slots=2, capacity=64,
                           device="cpu")
     inst.run_prefill(3, golden_prompts(tcfg.vocab_size)[0])
-    payload, L, _, _ = inst.export_state(3)
+    payload, L, *_ = inst.export_state(3)
     assert inst.kv.state_bytes(3) == sum(p.nbytes for p in payload)
 
 

@@ -14,6 +14,7 @@ read-only: a failing drawn schedule is reported, not written there.
 import json
 import pathlib
 import time
+import zlib
 
 import numpy as np
 import pytest
@@ -82,7 +83,7 @@ def test_import_rejects_corrupt_payload_before_alloc(setup):
         a.run_prefill(7, prompt)
         a.local.start_local_decode(7, len(prompt), 4)
         a.run_decode_iteration([7])
-        payload, L, last, gen = a.export_state(7)
+        payload, L, last, gen = a.export_state(7)[:4]
         good = crc(payload)
         wire = corrupt(payload)
         flat = (wire[0].view(np.uint8).reshape(-1) if key == "jax"
@@ -96,6 +97,118 @@ def test_import_rejects_corrupt_payload_before_alloc(setup):
         b.local.start_local_decode(7, L, 3)
         got[key] = [int(b.run_decode_iteration([7])[7]) for _ in range(3)]
     assert got["port"] == got["jax"]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-370m",
+                                  "recurrentgemma-9b"])
+def test_export_checksum_guards_the_import(arch):
+    """The checksum ``export_state`` hands over, taken on the slots' own
+    image of the state (k then v stacked for the dense slots, every slab
+    row's bytes in one tensor for the fixed-state ones), is ``state_checksum``
+    of the host payload it exports and zlib's over its bytes; a byte
+    flipped in any of the payload's tensors still raises
+    ``CorruptPayload`` with no slot taken, and the pristine payload lands
+    with the same image; on the CPU the crc32 kernel never launches."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import crc32_op
+    from repro_torch.weights import init_params
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    a, b = (EngineInstance(i, cfg, params, n_slots=2, capacity=64,
+                           device="cpu") for i in (0, 1))
+    before = crc32_op.launches
+    prompt = np.arange(1, 25, dtype=np.int32)
+    a.run_prefill(7, prompt)
+    a.local.start_local_decode(7, len(prompt), 4)
+    a.run_decode_iteration([7])
+    payload, L, last, gen, crc = a.export_state(7)
+    assert crc == state_checksum(payload) == zlib.crc32(b"".join(
+        p.contiguous().view(torch.uint8).numpy().tobytes()
+        for p in payload))
+    for i, p in enumerate(payload):
+        if not p.numel():
+            continue
+        wire = [q.clone() for q in payload]
+        wire[i].view(torch.uint8).view(-1)[-1] ^= 0x01
+        with pytest.raises(CorruptPayload):
+            b.import_state(7, wire, L, last, list(gen), checksum=crc)
+        assert 7 not in b.kv.slot_of and len(b.kv.free) == 2
+    assert b.import_state(7, payload, L, last, list(gen), checksum=crc)
+    assert 7 in b.kv.slot_of
+    assert b.export_state(7)[4] == crc
+    assert crc32_op.launches == before
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-370m",
+                                  "recurrentgemma-9b"])
+def test_one_checksum_a_side_of_each_attempt(arch, monkeypatch):
+    """A transfer attempt checksums one image at export and one at import,
+    whatever the number of payload tensors, each over the payload's whole
+    wire size; an import without a checksum uploads nothing before a slot
+    is found, so one that finds none costs no upload."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.engine import instance
+    from repro_torch.weights import init_params
+    sizes, images = [], []
+
+    def counted(t, crc=0):
+        sizes.append(t.nbytes)
+        return instance.crc32_op.__wrapped__(t, crc)
+
+    def image(parts, device):
+        images.append(len(parts))
+        return byte_image(parts, device)
+
+    counted.__wrapped__ = instance.crc32_op
+    byte_image = instance.byte_image
+    monkeypatch.setattr(instance, "crc32_op", counted)
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    a, b = (EngineInstance(i, cfg, params, n_slots=2, capacity=64,
+                           device="cpu") for i in (0, 1))
+    a.run_prefill(7, np.arange(1, 25, dtype=np.int32))
+    payload, L, last, gen, crc = a.export_state(7)
+    wire = sum(p.nbytes for p in payload)
+    assert sizes == [wire]
+    bad = [p.clone() for p in payload]
+    bad[-1].view(torch.uint8).view(-1)[0] ^= 0xFF
+    with pytest.raises(CorruptPayload):
+        b.import_state(7, bad, L, last, list(gen), checksum=crc)
+    assert b.import_state(7, payload, L, last, list(gen), checksum=crc)
+    assert sizes == [wire] * 3
+    monkeypatch.setattr(instance, "byte_image", image)
+    assert b.import_state(8, payload, L, last, list(gen))
+    assert not b.import_state(9, payload, L, last, list(gen))
+    assert images == [] and sizes == [wire] * 3
+    assert torch.equal(b.kv.state_image(7)[0], a.kv.state_image(7)[0])
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_byte_image_round_trip(order):
+    """``byte_image`` lays tensors' bytes back to back in one uint8 tensor
+    (a strided one in memory order) and ``split_image`` gives them back as
+    views of it; empty and 0-dim tensors take their place."""
+    from repro_torch.engine.state_slots import byte_image, split_image
+    g = torch.Generator().manual_seed(5)
+    parts = [torch.randn(3, 6, generator=g).to(torch.bfloat16),
+             torch.randn(2, 4, generator=g),
+             torch.tensor(7, dtype=torch.int32),
+             torch.empty(0, 3, dtype=torch.uint8),
+             torch.randn(4, 2, generator=g).t()]
+    if order:
+        parts = parts[::-1]
+    image = byte_image(parts, "cpu")
+    assert image.dtype == torch.uint8 and image.is_contiguous()
+    assert image.numpy().tobytes() == b"".join(
+        p.reshape(-1).view(torch.uint8).numpy().tobytes() for p in parts)
+    out = split_image(image, [(p.shape, p.dtype) for p in parts])
+    off = 0
+    for p, q in zip(parts, out):
+        assert q.shape == p.shape and q.dtype == p.dtype
+        assert torch.equal(q, p)
+        if p.numel():
+            assert q.data_ptr() == image.data_ptr() + off
+        off += p.nbytes
 
 
 def test_quarantine_parity(setup):

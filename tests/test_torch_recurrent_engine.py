@@ -117,7 +117,7 @@ def test_chunked_prefill_and_migration_continue_the_stream(setup):
     a.local.start_local_decode(1, 40, 7)
     for _ in range(3):
         got.append(a.run_decode_iteration([1])[1])
-    payload, L, last, gen = a.export_state(1)
+    payload, L, last, gen, _ = a.export_state(1)
     assert L == 43
     b = torch_instance(tcfg, tparams, iid=1)
     assert b.import_state(1, payload, L, last, gen,
@@ -152,7 +152,7 @@ def test_jax_payload_imports_into_torch(setup):
     for _ in range(5):
         got.append(dst.run_decode_iteration([7])[7])
     assert got == ref
-    tp, _, _, _ = dst.export_state(7)
+    tp, *_ = dst.export_state(7)
     assert [p.dtype for p in tp] == [torch.as_tensor(p).dtype
                                      for p in tpayload]
     assert state_checksum(tp) == jax_checksum([p.numpy() for p in tp])
@@ -167,7 +167,7 @@ def test_payload_bytes_do_not_grow_with_context(setup):
 
     def wire_bytes(rid, n):
         instance_stream(inst, rid, prompt_of(n, tcfg.vocab_size, rid), 3)
-        payload, L, _, _ = inst.export_state(rid)
+        payload, L, *_ = inst.export_state(rid)
         assert L == n + 2
         assert inst.kv.state_bytes(rid) == sum(p.nbytes for p in payload)
         inst.drop(rid)

@@ -84,7 +84,8 @@ def test_cluster_hands_its_tracer_to_every_instance(speculate):
     assert tr.counts()[m] == {"completed": 1.0}
     assert [spans[k][0] for k in tr.children()[m]] == [
         "migration.land", "migration.export", "migration.checksum",
-        "migration.checksum", "migration.checksum", "migration.import"]
+        "migration.import", "migration.checksum",
+        "migration.import", "migration.checksum", "migration.import"]
     assert {"cluster.step", "request.queue", "instance.dispatch",
             "instance.prepare", "instance.launch"} <= set(tr.names)
     c.tracer = None
@@ -181,8 +182,8 @@ def test_spans_nest_and_close(runs, arch):
     for i in mig:
         names = [spans[j][0] for j in kids[i]]
         assert names == ["migration.land", "migration.export",
-                         "migration.checksum", "migration.checksum",
-                         "migration.import"]
+                         "migration.checksum", "migration.import",
+                         "migration.checksum", "migration.import"]
     # each request waits once, from its arrival to its first chunk
     waits = [k for n, _, _, _, k in spans if n == "request.queue"]
     assert sorted(waits) == list(range(len(BURST)))

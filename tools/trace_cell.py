@@ -11,7 +11,9 @@ harness from outside, for one ``run_cell`` with a trace: a ``Tracer`` on
 the cluster at the first ``serve`` call (traffic's start, after warm-up);
 the sleeps of ``serve`` (nothing in flight) kept as ``harness.wait``; a
 second clock marker launched on the device as the profiled slice closes
-(``clock_skew_us``); and the window's ``Run`` kept for the readers.
+(``clock_skew_us``); the window's ``Run`` kept for the readers; and, from
+the tracer's attachment on, the crc32 kernel's launches and the calls of
+its host path (zlib), beside the ``migration.checksum`` spans.
 Prints one JSON line; needs a CUDA card.
 """
 from __future__ import annotations
@@ -49,16 +51,24 @@ def attached():
     from arrow_bench import harness, serve as serve_mod
     from arrow_bench.trace import Slicer
     from repro_torch.core.trace import Tracer
-    cap = {"cluster": None, "run": None, "waits": [], "close_host": None}
+    from repro_torch.kernels.crc32 import crc32_op, ops as crc_ops
+    cap = {"cluster": None, "run": None, "waits": [], "close_host": None,
+           "crc_launches": 0, "crc_host_calls": 0}
     orig_serve, orig_window = harness.serve, harness._window
-    orig_stop = Slicer.stop
+    orig_stop, orig_host = Slicer.stop, crc_ops.crc32_host
 
     def serve(cluster, *args, **kw):
         if cap["cluster"] is None:
             cap["cluster"] = cluster
             cluster.tracer = Tracer(cluster.clock)
             serve_mod.time = _Sleeps(cluster.clock, cap["waits"])
+            cap["crc_launches"] = -crc32_op.launches
+            crc_ops.crc32_host = host
         return orig_serve(cluster, *args, **kw)
+
+    def host(*args, **kw):
+        cap["crc_host_calls"] += 1
+        return orig_host(*args, **kw)
 
     def window(*args, **kw):
         out = orig_window(*args, **kw)
@@ -78,6 +88,8 @@ def attached():
     finally:
         harness.serve, harness._window = orig_serve, orig_window
         serve_mod.time, Slicer.stop = time, orig_stop
+        crc_ops.crc32_host = orig_host
+        cap["crc_launches"] += crc32_op.launches
 
 
 def span_cost_us(n: int = 20000) -> float:
@@ -118,7 +130,12 @@ def main(argv=None) -> int:
              **ps.info(run, tr),
              "harness_wait_s": sum(e - s for s, e in cap["waits"]
                                    if a <= s < b),
-             **ps.idle_by_span(run, tr, cap["waits"], cap["close_host"])}
+             **ps.idle_by_span(run, tr, cap["waits"], cap["close_host"]),
+             "crc32": {"launches": cap["crc_launches"],
+                       "host_calls": cap["crc_host_calls"],
+                       "checksum_spans": tr.names.count(
+                           "migration.checksum"),
+                       "migrations": tr.names.count("migration")}}
     line = {"workload": args.workload, "seed": args.seed,
             "card": out["info"]["card"], "correct": out["correct"],
             "metrics": out["metrics"], "breakdown": out.get("breakdown"),
