@@ -70,6 +70,10 @@ class ModelConfig:
     head_dim: Optional[int] = None       # default d_model // n_heads
     activation: str = "swiglu"           # swiglu | geglu | gelu
     norm: str = "rmsnorm"                # rmsnorm | layernorm
+    norm_eps: float = 1e-6               # RMSNorm epsilon (the JAX package's)
+    # ssm: keep the residual stream in float32 between layers, each norm's
+    # output cast to the weights' dtype (mamba_ssm's fused add-norm)
+    residual_in_fp32: bool = False
     rope: str = "standard"               # standard | partial | mrope | none | learned
     rope_fraction: float = 1.0           # fraction of head_dim rotated (chatglm=0.5)
     rope_theta: float = 10000.0

@@ -36,7 +36,11 @@ What the engine records (``engine/cluster.py``, ``engine/instance.py``):
   kernels; the span does not tell those apart), and counters
   ``decode_rows`` (decoding rows), ``batch_rows`` (the rows the decode batch
   runs over: every slot), ``prompt_tokens``, ``kv_tokens`` (positions held
-  by the instance's occupied slots) and ``kv_reserved`` (slots x capacity);
+  by the instance's occupied slots) and ``kv_reserved`` (slots x capacity),
+  and in a constant-state family (ssm, hybrid) also ``state_bytes`` (the
+  bytes of the slab rows its occupied slots hold), ``state_reserved_bytes``
+  (the bytes of its slabs) and ``chunk_calls`` (the prefill chunks the
+  step runs one after another);
 - ``instance.finalize`` (iid): the step's blocking fetch, then its child
   ``instance.emit``, the host bookkeeping of the tokens;
 - ``migration`` (rid), one ``_begin_transfer``, with children

@@ -617,6 +617,11 @@ class ArrowEngineCluster(RuntimeCore):
             tr.count(span, "kv_tokens",
                      sum(kv.len_of.get(r, 0) for r in kv.slot_of))
             tr.count(span, "kv_reserved", kv.n_slots * inst.capacity)
+            if inst.cfg.family != "dense":         # constant-state slabs
+                tr.count(span, "state_bytes",
+                         sum(kv.state_bytes(r) for r in kv.slot_of))
+                tr.count(span, "state_reserved_bytes", kv.reserved_bytes())
+                tr.count(span, "chunk_calls", len(chunks))
         return pending, chunks, t_start, t_disp
 
     def _finalize_instance_step(self, iid: int, inst: EngineInstance,

@@ -187,9 +187,12 @@ class _FixedStateSlots(StateSlotsBase):
             a.select(axis, s).copy_(torch.as_tensor(row))
         self.len_of[rid] = length
 
+    def reserved_bytes(self) -> int:
+        """Bytes of the slabs: every slot's state, held or free."""
+        return sum(a.numel() * a.element_size() for a, _ in self._leaves())
+
     def state_bytes(self, rid: int) -> int:
-        return sum(a.numel() * a.element_size()
-                   for a, _ in self._leaves()) // self.n_slots
+        return self.reserved_bytes() // self.n_slots
 
     def copy_prefix(self, src_rid: int, dst_rid: int, length: int) -> None:
         # exact-prefix only: the recurrent state *is* the whole context

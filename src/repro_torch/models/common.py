@@ -88,7 +88,7 @@ def layer_norm(x, w, b, eps=1e-5):
 def apply_norm(cfg: ModelConfig, p, prefix: str, x):
     """``p`` holds ``<prefix>/scale`` (and ``<prefix>/bias`` for layernorm)."""
     if cfg.norm == "rmsnorm":
-        return rms_norm(x, p[f"{prefix}/scale"])
+        return rms_norm(x, p[f"{prefix}/scale"], cfg.norm_eps)
     return layer_norm(x, p[f"{prefix}/scale"], p[f"{prefix}/bias"])
 
 

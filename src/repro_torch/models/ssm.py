@@ -7,6 +7,12 @@ reference path; ``cfg.attn_impl == "hopper"`` routes the serving path's
 chunk scan (``prefill_chunk``) through the hand-written ``ssd_scan`` kernel
 (its plain version on CPU tensors).
 
+Norms take ``cfg.norm_eps``. With ``cfg.residual_in_fp32`` the residual
+stream runs in float32 from the embedding through the final norm, in every
+entry point; each norm's output is cast to the weights' dtype and each
+block's output is added to the stream in float32 (mamba_ssm's fused
+add-norm). Without it the stream is in the weights' dtype.
+
 State cache (per model):
   {"conv": (L, B, W-1, d_conv_ch), "ssm": (L, B, H, P, N) float32} — O(1)
   in sequence length.
@@ -112,12 +118,23 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, chunk, h0=None):
     return y, h
 
 
+def _stream(cfg, x):
+    """The residual stream of the embeddings ``x``: float32 with
+    ``cfg.residual_in_fp32``, else as given."""
+    return x.float() if cfg.residual_in_fp32 else x
+
+
 def _in_proj(cfg, lp, u):
-    x_in = cm.apply_norm(cfg, lp, "ln", u)
+    # the norm's output in the weights' dtype, whatever the stream's
+    x_in = cm.apply_norm(cfg, lp, "ln", u).to(lp["w_in"].dtype)
     return _split_in(cfg, x_in @ lp["w_in"])
 
 
 def _out(cfg, lp, u, y, z):
+    """The scan's float32 output ``y`` in the weights' dtype, gated by
+    ``z``, normed and projected, then added to the stream ``u`` in ``u``'s
+    dtype."""
+    y = y.to(lp["w_out"].dtype)
     y = cm.apply_norm(cfg, lp, "out_norm", y * F.silu(z))
     return u + cm.settled(y @ lp["w_out"])
 
@@ -141,7 +158,7 @@ def _block_seq(cfg, lp, u):
             lambda *a: _mix_seq(cfg, *a), (xBC, dt), consts, 3)
     else:
         y, conv_state, h_final = _mix_seq(cfg, xBC, dt, *consts)
-    return _out(cfg, lp, u, y.to(u.dtype), z), conv_state, h_final
+    return _out(cfg, lp, u, y, z), conv_state, h_final
 
 
 def _mix_seq(cfg, xBC, dt, conv_w, conv_b, dt_bias, A_log, D):
@@ -170,7 +187,7 @@ def _block_step(cfg, lp, u, conv_state, h):
             consts, 3)
     else:
         y, new_conv, h = _mix_step(cfg, xBC, dt, conv_state, h, *consts)
-    return _out(cfg, lp, u, y.to(u.dtype), z), new_conv, h
+    return _out(cfg, lp, u, y, z), new_conv, h
 
 
 def _mix_step(cfg, xBC, dt, conv_state, h, conv_w, conv_b, dt_bias, A_log,
@@ -227,7 +244,7 @@ def _block_chunk(cfg, lp, u, conv_state, h0, valid_len: int):
         y = y + lp["D"][None, None, :, None] * xs              # skip term
     else:
         y, h_final = ssd_chunked(xs, dt, A, Bm, Cm, lp["D"], Q, h0)
-    y = y[:, :S].reshape(B, S, di).to(u.dtype)
+    y = y[:, :S].reshape(B, S, di)
     return _out(cfg, lp, u, y, z), new_conv, h_final
 
 
@@ -246,7 +263,8 @@ def init_cache(cfg: ModelConfig, batch: int, capacity=None, device="cuda"):
 
 
 def _final(cfg, params, x):
-    x = cm.apply_norm(cfg, params, "final_norm", x)
+    x = cm.apply_norm(cfg, params, "final_norm", x).to(
+        params["tok/embed"].dtype)
     return cm.unembed(cfg, params, x)
 
 
@@ -261,7 +279,7 @@ def prefill_chunk(cfg: ModelConfig, params, cache, x, offset=None, *,
     the recurrent state carries all positional context. Returns (logits,
     cache)."""
     del offset, window
-    x = cm.constrain_batch(cfg, x)
+    x = cm.constrain_batch(cfg, _stream(cfg, x))
     conv, ssm = cache["conv"], cache["ssm"]
     for i in range(cfg.n_layers):
         x, new_conv, h = _block_chunk(cfg, layer(params, i), x, conv[i],
@@ -278,7 +296,7 @@ def forward_seq(cfg: ModelConfig, params, x, positions=None, *,
     """x (B,S,d). Returns (logits, cache|None); the cache is new.
     ``remat`` recomputes each layer's activations in the backward pass."""
     del positions, window
-    x = cm.constrain_batch(cfg, x)
+    x = cm.constrain_batch(cfg, _stream(cfg, x))
     convs, hs = [], []
     for lp in layers(params):
         x, conv_state, h = cm.run_layer(
@@ -299,7 +317,7 @@ def decode_step(cfg: ModelConfig, params, cache, x, pos=None, *,
     tensor) when given, so the other rows keep theirs exactly. Returns
     (logits (B,1,V), cache)."""
     del pos, window
-    x = cm.constrain_batch(cfg, x)
+    x = cm.constrain_batch(cfg, _stream(cfg, x))
     conv, ssm = cache["conv"], cache["ssm"]
     for i in range(cfg.n_layers):
         x, new_conv, h = _block_step(cfg, layer(params, i), x, conv[i],

@@ -92,6 +92,17 @@ def test_cluster_hands_its_tracer_to_every_instance(speculate):
     assert all(i.tracer is None for i in c.instances.values())
 
 
+def slot_bytes(cfg):
+    """A Mamba-2 slot's state, from its config: the convolution's last
+    W-1 inputs and the scan state of every layer, in their dtypes."""
+    s = cfg.ssm
+    di = s.d_inner(cfg.d_model)
+    conv = (s.d_conv - 1) * (di + 2 * s.n_groups * s.d_state) \
+        * torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    scan = s.n_heads(cfg.d_model) * s.head_dim * s.d_state * 4
+    return cfg.n_layers * (conv + scan)
+
+
 def _serve(arch, traced, mp):
     """The burst on a fresh 1P+1D cluster (weights from one seed); returns
     the cluster, the streams by rid, and what each dispatched step was
@@ -114,6 +125,12 @@ def _serve(arch, traced, mp):
                 "prompt_tokens": sum(cw.length for cw in chunks),
                 "kv_tokens": sum(kv.len_of.get(r, 0) for r in kv.slot_of),
                 "kv_reserved": kv.n_slots * inst.capacity})
+            if inst.cfg.family != "dense":
+                steps[-1].update({
+                    "state_bytes": len(kv.slot_of) * slot_bytes(inst.cfg),
+                    "state_reserved_bytes":
+                        kv.n_slots * slot_bytes(inst.cfg),
+                    "chunk_calls": len(chunks)})
         return out
 
     mp.setattr(EngineInstance, "dispatch_step", noted)
@@ -201,3 +218,24 @@ def test_step_counters_count_what_the_instance_was_given(runs, arch):
     assert sum(s["decode_rows"] for s in steps) > 0
     assert sum(s["prompt_tokens"] for s in steps) == sum(
         n for _, n, _ in BURST)
+
+
+def test_constant_state_counters_sum_to_the_slabs_and_chunks(runs):
+    """Over the small Mamba-2 run the new counters add up to the slabs'
+    size a step, whole slots' states held, and the chunks the prompts
+    need; the dense run has none of them."""
+    c = runs["mamba2-370m"][True][0]
+    cnt = c.tracer.counts()
+    got = [cnt[i] for i, n in enumerate(c.tracer.names)
+           if n == "instance.dispatch" and i in cnt]
+    per = slot_bytes(c.cfg)
+    assert per == 39680                   # 2 x (3 x 288 x 4 + 8 x 32 x 16 x 4)
+    assert sum(g["state_reserved_bytes"] for g in got) == \
+        len(got) * 4 * per                # 4 slots an instance
+    held = sum(g["state_bytes"] for g in got)
+    assert held % per == 0 and 0 < held < len(got) * 4 * per
+    # a prompt of n tokens takes at least ceil(n / 32) chunks
+    assert sum(g["chunk_calls"] for g in got) >= sum(
+        -(-n // 32) for _, n, _ in BURST)
+    dense = runs["qwen3-1.7b"][True][0].tracer
+    assert not any("chunk_calls" in v for v in dense.counts().values())

@@ -13,7 +13,8 @@ the sleeps of ``serve`` (nothing in flight) kept as ``harness.wait``; a
 second clock marker launched on the device as the profiled slice closes
 (``clock_skew_us``); the window's ``Run`` kept for the readers; and, from
 the tracer's attachment on, the crc32 kernel's launches and the calls of
-its host path (zlib), beside the ``migration.checksum`` spans.
+its host path (zlib), beside the ``migration.checksum`` spans; and the
+sums of a constant-state family's dispatch counters (``state_sums``).
 Prints one JSON line; needs a CUDA card.
 """
 from __future__ import annotations
@@ -26,6 +27,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+STATE_COUNTERS = ("state_bytes", "state_reserved_bytes", "chunk_calls")
 
 
 class _Sleeps:
@@ -126,8 +128,13 @@ def main(argv=None) -> int:
         out = run_cell(cell, args.seed, args.seconds, True, "cuda", t_start)
     run, tr = cap["run"], cap["cluster"].tracer
     a, b = run.window
+    _, counts = ps.steps(run, tr)
     trace = {"metrics": {k: f(run, tr) for k, f in ps.METRICS.items()},
              **ps.info(run, tr),
+             # a constant-state family's dispatch counters, summed over the
+             # window's dispatched steps (absent, 0, for a dense one)
+             "state_sums": {k: sum(c.get(k, 0) for c in counts)
+                            for k in STATE_COUNTERS},
              "harness_wait_s": sum(e - s for s, e in cap["waits"]
                                    if a <= s < b),
              **ps.idle_by_span(run, tr, cap["waits"], cap["close_host"]),
