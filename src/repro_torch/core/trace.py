@@ -33,14 +33,19 @@ What the engine records (``engine/cluster.py``, ``engine/instance.py``):
   slots and sampling parameters, and the token uploads it makes itself)
   and ``instance.launch`` (each call into ``engine/fused_step.py``: the
   call's own host arrays and uploads, then the enqueue of the step's
-  kernels; the span does not tell those apart), and counters
+  kernels; the span does not tell those apart; or the replay of the
+  decode graph: its inputs' staging and upload, then one graph launch),
+  and counters
   ``decode_rows`` (decoding rows), ``batch_rows`` (the rows the decode batch
   runs over: every slot), ``prompt_tokens``, ``kv_tokens`` (positions held
   by the instance's occupied slots) and ``kv_reserved`` (slots x capacity),
   and in a constant-state family (ssm, hybrid) also ``state_bytes`` (the
   bytes of the slab rows its occupied slots hold), ``state_reserved_bytes``
   (the bytes of its slabs) and ``chunk_calls`` (the prefill chunks the
-  step runs one after another);
+  step runs one after another), and in every family ``graph_replays`` (1
+  when the step's decode batch ran as a replay of the instance's captured
+  CUDA graph, ``engine/decode_graph.py``, else 0) and ``graph_captures``
+  (captures of that graph made inside the dispatch: the slabs had moved);
 - ``instance.finalize`` (iid): the step's blocking fetch, then its child
   ``instance.emit``, the host bookkeeping of the tokens;
 - ``migration`` (rid), one ``_begin_transfer``, with children

@@ -597,6 +597,8 @@ class ArrowEngineCluster(RuntimeCore):
             chunks.append(ChunkWork(rid, start, ln,
                                     prompt[start:start + ln],
                                     handle.req.input_len))
+        if tr is not None:
+            graph0 = (inst.graph_replays, inst.graph_captures)
         pending = inst.dispatch_step(plan.decode_rids, chunks)
         if pending is None:
             if tr is not None:
@@ -622,6 +624,9 @@ class ArrowEngineCluster(RuntimeCore):
                          sum(kv.state_bytes(r) for r in kv.slot_of))
                 tr.count(span, "state_reserved_bytes", kv.reserved_bytes())
                 tr.count(span, "chunk_calls", len(chunks))
+            tr.count(span, "graph_replays", inst.graph_replays - graph0[0])
+            tr.count(span, "graph_captures",
+                     inst.graph_captures - graph0[1])
         return pending, chunks, t_start, t_disp
 
     def _finalize_instance_step(self, iid: int, inst: EngineInstance,

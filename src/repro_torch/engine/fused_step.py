@@ -303,6 +303,19 @@ def ssm_decode_only(cfg, params, conv, ssm, tokens, pos, temps, top_ps,
                              top_ps, seeds, rids, active)
 
 
+def ssm_decode_greedy(cfg, params, conv, ssm, tokens, mask):
+    """:func:`ssm_decode_only` for a batch whose rows are all greedy, in a
+    form a CUDA graph captures: every argument a device tensor of fixed
+    shape, the state written where the (B,) bool ``mask`` is set, and the
+    argmax of ``sample_tokens``' greedy branch. -> (B,) int32."""
+    x = ssm_models.embed_tokens(cfg, params, tokens)
+    logits, _ = ssm_models.decode_step(cfg, params,
+                                       {"conv": conv, "ssm": ssm}, x,
+                                       active=mask)
+    return torch.argmax(logits[:, 0, :cfg.vocab_size], dim=-1).to(
+        torch.int32)
+
+
 def ssm_chunks_only(cfg, params, conv, ssm, toks, slots, offsets, lens,
                     temps, top_ps, seeds, rids):
     return _recurrent_chunks(ssm_models, _ssm_view(conv, ssm), cfg, params,

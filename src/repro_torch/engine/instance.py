@@ -22,7 +22,9 @@ host ``pos_map`` round trip per prefill chunk.
 
 The decode state is per family (``repro_torch.engine.state_slots``): KV
 rings for dense models, constant-size recurrent state for Mamba-2 and
-RecurrentGemma.
+RecurrentGemma. A Mamba-2 instance on a card captures its greedy decode
+step once as a CUDA graph and replays it on every decode batch whose rows
+are all greedy (``repro_torch.engine.decode_graph``).
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.local_scheduler import LocalScheduler
-from repro_torch.engine import fused_step as fs
+from repro_torch.engine import decode_graph, fused_step as fs
 from repro_torch.engine.state_slots import (byte_image, make_state_slots,
                                             split_image)
 from repro_torch.kernels.crc32 import crc32_op
@@ -193,6 +195,10 @@ class EngineInstance:
         self.step_mode = step_mode
         self.kv = make_state_slots(cfg, n_slots, capacity, self.device)
         self._ops = fs.ops_for(cfg.family)
+        # the greedy decode step as one CUDA graph, captured now, while
+        # every slot is free (engine/decode_graph.py); None: always eager
+        self._graph = (decode_graph.SSMDecodeGraph(cfg, params, self.kv)
+                       if decode_graph.fits(cfg, self.kv.slabs()) else None)
         if not self.kv.supports_speculation:
             # a rejected draft cannot roll back a recurrent state update,
             # so constant-state families serve the plain sequential stream
@@ -217,6 +223,17 @@ class EngineInstance:
 
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device, non_blocking=True)
+
+    @property
+    def graph_replays(self) -> int:
+        """Decode steps run as a replay of the captured graph, so far."""
+        return 0 if self._graph is None else self._graph.replays
+
+    @property
+    def graph_captures(self) -> int:
+        """Captures of the decode graph, so far (the first at
+        construction; again whenever the slabs moved)."""
+        return 0 if self._graph is None else self._graph.captures
 
     # ------------------------------------------------------------- slots
     def alloc_slot(self, rid: int) -> int:
@@ -358,6 +375,7 @@ class EngineInstance:
         if tr is not None:
             span = tr.open("instance.prepare", self.iid)
         dec_args = None
+        dec_toks = None           # the decode half, replayed from the graph
         spec = None
         # speculative round: every active row must fit its k drafts plus
         # the bonus token; otherwise fall back to plain decode this step
@@ -389,6 +407,10 @@ class EngineInstance:
                     self.cfg, self.draft_layers, self.speculate,
                     self.params, *self.kv.slabs(), self._dev(tokens), pos,
                     *samp, active)
+            elif self._graph is not None and not (samp[0] > 0).any():
+                if tr is not None:
+                    span = tr.next(span, "instance.launch", self.iid)
+                dec_toks = self._graph.replay(tokens, active)
             else:
                 dec_args = (self._dev(tokens), pos) + samp
                 if self.kv.needs_active_mask:
@@ -425,6 +447,11 @@ class EngineInstance:
                 out = self._ops.mixed_step(
                     self.cfg, self.params, *self.kv.slabs(), *dec_args,
                     *c_args)
+            elif gi == 0 and dec_toks is not None:
+                # the replayed decode half, then the chunks eager, in the
+                # mixed step's order
+                out = torch.cat([dec_toks, self._ops.chunks_only(
+                    self.cfg, self.params, *self.kv.slabs(), *c_args)])
             else:
                 out = self._ops.chunks_only(
                     self.cfg, self.params, *self.kv.slabs(), *c_args)
@@ -435,8 +462,11 @@ class EngineInstance:
             out = self._ops.decode_only(
                 self.cfg, self.params, *self.kv.slabs(), *dec_args)
             groups.append(([], out))
+        if not groups and dec_toks is not None:
+            groups.append(([], dec_toks))
         pending = PendingStep(list(decode_rids), groups, spec=spec,
-                              decode_in_group0=dec_args is not None)
+                              decode_in_group0=dec_args is not None
+                              or dec_toks is not None)
         if tr is not None:
             tr.close(span)
         return pending

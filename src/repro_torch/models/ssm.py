@@ -20,9 +20,10 @@ State cache (per model):
 Where the JAX package returned new cache arrays, ``prefill_chunk`` and
 ``decode_step`` write the new state into the given cache tensors **in
 place** (a slot's view of the engine's slabs) and return the same dict.
-``decode_step`` takes an optional ``active`` row index: only those rows'
-state is written, so a parked slot keeps its state exactly (the JAX fused
-step masked the returned cache instead).
+``decode_step`` takes an optional ``active``, a row index or a bool row mask:
+only those rows' state is written, so a parked slot keeps its state exactly
+(the JAX fused step masked the returned cache instead). The mask's write
+has one shape whatever the rows, so a CUDA graph can replay it.
 """
 from __future__ import annotations
 
@@ -310,20 +311,31 @@ def forward_seq(cfg: ModelConfig, params, x, positions=None, *,
     return _final(cfg, params, x), cache
 
 
+def _write_state(dst, src, active) -> None:
+    """dst's rows ``active`` take src's: by index (``cm.write_rows``) for a
+    long index tensor or None, else where the (B,) bool mask is set, in
+    place over every row, so a masked-out row keeps its bits."""
+    if active is None or active.dtype != torch.bool:
+        cm.write_rows(dst, src, active)
+        return
+    torch.where(active.view((-1,) + (1,) * (dst.dim() - 1)), src, dst,
+                out=dst)
+
+
 def decode_step(cfg: ModelConfig, params, cache, x, pos=None, *,
                 window=None, active=None):
     """x (B,1,d) new-token embeddings. Steps every row's recurrence and
     writes the new state in place — only rows ``active`` (a long index
-    tensor) when given, so the other rows keep theirs exactly. Returns
-    (logits (B,1,V), cache)."""
+    tensor, or a (B,) bool mask) when given, so the other rows keep theirs
+    exactly. Returns (logits (B,1,V), cache)."""
     del pos, window
     x = cm.constrain_batch(cfg, _stream(cfg, x))
     conv, ssm = cache["conv"], cache["ssm"]
     for i in range(cfg.n_layers):
         x, new_conv, h = _block_step(cfg, layer(params, i), x, conv[i],
                                      ssm[i])
-        cm.write_rows(conv[i], new_conv, active)
-        cm.write_rows(ssm[i], h, active)
+        _write_state(conv[i], new_conv, active)
+        _write_state(ssm[i], h, active)
     return _final(cfg, params, x), cache
 
 

@@ -116,6 +116,7 @@ def _serve(arch, traced, mp):
     dispatch = EngineInstance.dispatch_step
 
     def noted(inst, decode_rids, chunks):
+        graph0 = (inst.graph_replays, inst.graph_captures)
         out = dispatch(inst, decode_rids, chunks)
         if out is not None:
             kv = inst.kv
@@ -124,7 +125,9 @@ def _serve(arch, traced, mp):
                 "batch_rows": kv.n_slots if decode_rids else 0,
                 "prompt_tokens": sum(cw.length for cw in chunks),
                 "kv_tokens": sum(kv.len_of.get(r, 0) for r in kv.slot_of),
-                "kv_reserved": kv.n_slots * inst.capacity})
+                "kv_reserved": kv.n_slots * inst.capacity,
+                "graph_replays": inst.graph_replays - graph0[0],
+                "graph_captures": inst.graph_captures - graph0[1]})
             if inst.cfg.family != "dense":
                 steps[-1].update({
                     "state_bytes": len(kv.slot_of) * slot_bytes(inst.cfg),

@@ -13,8 +13,10 @@ the sleeps of ``serve`` (nothing in flight) kept as ``harness.wait``; a
 second clock marker launched on the device as the profiled slice closes
 (``clock_skew_us``); the window's ``Run`` kept for the readers; and, from
 the tracer's attachment on, the crc32 kernel's launches and the calls of
-its host path (zlib), beside the ``migration.checksum`` spans; and the
-sums of a constant-state family's dispatch counters (``state_sums``).
+its host path (zlib), beside the ``migration.checksum`` spans; the
+sums of a constant-state family's dispatch counters (``state_sums``); and
+the window's decode graph replays and captures beside its dispatched
+decode steps (``graph``).
 Prints one JSON line; needs a CUDA card.
 """
 from __future__ import annotations
@@ -135,6 +137,14 @@ def main(argv=None) -> int:
              # window's dispatched steps (absent, 0, for a dense one)
              "state_sums": {k: sum(c.get(k, 0) for c in counts)
                             for k in STATE_COUNTERS},
+             # the decode graph (engine/decode_graph.py): replays, captures
+             # inside dispatches, and the dispatched steps that decoded
+             "graph": {"replays": sum(c.get("graph_replays", 0)
+                                      for c in counts),
+                       "captures": sum(c.get("graph_captures", 0)
+                                       for c in counts),
+                       "decode_dispatches": sum(
+                           1 for c in counts if c["decode_rows"] > 0)},
              "harness_wait_s": sum(e - s for s, e in cap["waits"]
                                    if a <= s < b),
              **ps.idle_by_span(run, tr, cap["waits"], cap["close_host"]),
