@@ -16,11 +16,11 @@ the same weights and tokens, then serves 8 requests through
 ``ArrowEngineCluster`` (2 instances, Arrow policy, prefill -> decode state
 migration) on the kernels, with every launch count set to 0 just before and
 read just after, and checks that every kernel of that path ran. The dense
-path is then served again in its two other step modes — legacy
-(pre-fusion) and self-speculative (k = 4, a 14-layer draft on paged decode,
-the verify on flash_prefill_dyn at k+1 rows) — each read the same way, with
-the number of its streams equal to the fused ones reported; and once more
-in float32 in all three modes, whose streams must be equal id for id.
+path is then served again self-speculatively (k = 4, a 14-layer draft on
+paged decode, the verify on flash_prefill_dyn at k+1 rows), read the same
+way, with the number of its streams equal to the fused ones reported; and
+once more in float32, sequential and speculative, whose streams must be
+equal id for id.
 
 Then the runtime phase drives Arrow's runtime mechanisms at full width
 (seed-0 weights, on the kernels). For qwen3-1.7b in float32 and then bf16,
@@ -559,8 +559,7 @@ def check_streams(cfg, handles, out_len: int = 32) -> None:
 def serve(cfg, params, expect, dev="cuda", label="fused", **kw):
     """One engine path: ArrowEngineCluster on the kernels, 8 requests
     (4 greedy, 4 sampled), prefill on instance 0, decode after migration;
-    ``kw`` picks the step mode (``step_mode``, ``speculate``,
-    ``draft_layers``). Every launch count is set to 0 just before and read
+    ``kw`` picks the decode mode (``speculate``, ``draft_layers``). Every launch count is set to 0 just before and read
     just after; each wrapper of ``expect`` (the path's kernels) must have
     launched. Returns the cluster, the launch counts of this run and the
     8 token streams."""
@@ -613,39 +612,32 @@ def serve(cfg, params, expect, dev="cuda", label="fused", **kw):
 
 
 def step_modes(cfg, params, expect, fused, dev="cuda"):
-    """The dense path's two other step modes at the fused phase's shape:
-    legacy (pre-fusion) and self-speculative (k = 4, half the layers as
-    the draft). Each must launch the path's kernels; how many of its 8
-    streams equal the fused ones (``fused``) is reported, with the first
-    differing position of each other one, not asserted: in bf16 the
-    verify's (k+1)-row GEMMs and flash round differently from decode's
-    1-row GEMMs and paged kernel, and legacy's one chunk a pass cuts the
-    prompts at other offsets (other GEMM shapes and flash split plans), so
-    a near-tied argmax can flip. Returns each mode's launch counts and
-    streams."""
-    out = {}
-    for label, kw in (("legacy", {"step_mode": "legacy"}),
-                      ("speculative", {"speculate": 4,
-                                       "draft_layers": cfg.n_layers // 2})):
-        cluster, counts, streams = serve(cfg, params, expect, dev, label,
-                                         **kw)
-        differ = [i for i, (a, b) in enumerate(zip(streams, fused)) if a != b]
-        log({"step_mode": label, "dtype": cfg.dtype,
-             "streams_equal_fused": f"{len(fused) - len(differ)}/{len(fused)}",
-             "differ": {i: next(j for j, (x, y) in enumerate(
-                 zip(streams[i], fused[i])) if x != y) for i in differ}})
-        out[label] = (counts, streams)
-        del cluster
-        gc.collect()
-        torch.cuda.empty_cache()
-    return out
+    """The dense path's self-speculative step (k = 4, half the layers as
+    the draft) at the fused phase's shape. It must launch the path's
+    kernels; how many of its 8 streams equal the sequential ones
+    (``fused``) is reported, with the first differing position of each
+    other one, not asserted: in bf16 the verify's (k+1)-row GEMMs and
+    flash round differently from decode's 1-row GEMMs and paged kernel, so
+    a near-tied argmax can flip. Returns the mode's launch counts and
+    streams by label."""
+    cluster, counts, streams = serve(cfg, params, expect, dev, "speculative",
+                                     speculate=4,
+                                     draft_layers=cfg.n_layers // 2)
+    differ = [i for i, (a, b) in enumerate(zip(streams, fused)) if a != b]
+    log({"step_mode": "speculative", "dtype": cfg.dtype,
+         "streams_equal_fused": f"{len(fused) - len(differ)}/{len(fused)}",
+         "differ": {i: next(j for j, (x, y) in enumerate(
+             zip(streams[i], fused[i])) if x != y) for i in differ}})
+    del cluster
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"speculative": (counts, streams)}
 
 
 def check_stream_identity(cfg, expect, dev="cuda"):
     """qwen3-1.7b at full width in float32 (weights from seed 0, TF32 off,
-    the kernels' float32 routes): the same 8 requests served in the fused
-    sequential, legacy and speculative (k = 4) step modes give the same
-    streams id for id."""
+    the kernels' float32 routes): the same 8 requests served sequentially
+    and speculatively (k = 4) give the same streams id for id."""
     from repro_torch.weights import init_params
     cfg = cfg.replace(dtype="float32")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -2164,8 +2156,7 @@ def main() -> int:
     counts, obs = {}, {}
     for arch, expect, tags in paths():
         cfg = get_config(arch)              # full width, bf16
-        modes = "fused, legacy, speculative" if cfg.family == "dense" \
-            else "fused"
+        modes = "fused, speculative" if cfg.family == "dense" else "fused"
         with phase(phases, f"engine {arch} ({modes})"):
             g = torch.Generator(device="cuda").manual_seed(0)
             params = init_params(cfg, g, "cuda")
@@ -2202,7 +2193,7 @@ def main() -> int:
             torch.cuda.empty_cache()
         if cfg.family == "dense":
             with phase(phases,
-                       f"stream_identity {arch} (float32, three modes)"):
+                       f"stream_identity {arch} (float32, two modes)"):
                 check_stream_identity(cfg, expect)
 
     with phase(phases, "runtime"):

@@ -1,5 +1,6 @@
 """The port's benchmarks, one module per paper table/figure, in the order
-``run.py`` runs them (that of ``benchmarks/run.py``). Each prints
+``run.py`` runs them (that of ``benchmarks/run.py``, less its race of the
+JAX engine's two step modes: the port has one). Each prints
 ``name,us_per_call,derived`` CSV lines.
 
 The simulator benches run on the host, on ``repro_torch.sim`` with the
@@ -21,7 +22,6 @@ The engine legs and the kernels run on the card by default (``--device
 cuda``) or on the CPU (``--device cpu``):
 
   (ours)   bench_chaos             self-healing vs detection-off under chaos (DESIGN §14)
-  (ours)   bench_engine_step       legacy (pre-fusion) vs fused step on one burst
   (ours)   bench_speculative       self-speculative (k = 4) vs sequential decode
   (ours)   bench_ssm               SSM/recurrent decode-state serving economics (DESIGN §13)
   (ours)   bench_kernels           the five Hopper kernels vs their plain versions

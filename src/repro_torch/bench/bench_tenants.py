@@ -8,7 +8,7 @@ under ``arrow_elastic`` on a capacity-capped cluster (the point where
 elastic scale-up alone cannot absorb the flood):
 
   * off   — the tenancy subsystem disarmed: no registry, no admission,
-            legacy FIFO dispatch. The flooder's backlog head-of-line
+            plain FIFO dispatch. The flooder's backlog head-of-line
             blocks everyone.
   * wdrr  — registry armed, admission off: weighted deficit round-robin
             dispatch isolates prefill queues but admits everything.

@@ -1,8 +1,9 @@
 """Benchmark runner of the port — one function per paper table/figure, in
-the order of ``benchmarks/run.py``. Prints ``name,us_per_call,derived`` CSV
+the order of ``benchmarks/run.py`` (less its race of the JAX engine's two
+step modes: the port has one). Prints ``name,us_per_call,derived`` CSV
 lines. ``BENCH_FAST=1`` shortens the simulator traces to 60 s and runs the
 engine legs at their smoke sizes; ``--device`` (default ``cuda``) is the
-device of the four engine legs and of ``bench_kernels``.
+device of the three engine legs and of ``bench_kernels``.
 
   PYTHONPATH=src python -m repro_torch.bench.run [--device cpu]
   BENCH_FAST=1 PYTHONPATH=src python -m repro_torch.bench.run --device cpu
@@ -29,12 +30,12 @@ def main(argv=None) -> None:
 
     from repro_torch.bench import (bench_ablation, bench_chaos,
                                    bench_deflection, bench_e2e,
-                                   bench_elastic, bench_engine_step,
-                                   bench_faults, bench_flip_latency,
-                                   bench_kernels, bench_load_difference,
-                                   bench_prefix, bench_scalability,
-                                   bench_speculative, bench_ssm,
-                                   bench_tenants, bench_trace_stats, roofline)
+                                   bench_elastic, bench_faults,
+                                   bench_flip_latency, bench_kernels,
+                                   bench_load_difference, bench_prefix,
+                                   bench_scalability, bench_speculative,
+                                   bench_ssm, bench_tenants,
+                                   bench_trace_stats, roofline)
     from repro_torch.launch.dryrun import load_results
     print("name,us_per_call,derived")
     bench_trace_stats.main()
@@ -51,7 +52,6 @@ def main(argv=None) -> None:
     # needs its full 120 s window: the FIFO collapse the headline asserts
     # takes that long to build, so BENCH_FAST does not shorten it
     bench_tenants.main([])
-    bench_engine_step.main(dev)
     bench_speculative.main(smoke + dev)
     bench_ssm.main(smoke + dev)
     bench_kernels.main(dev)

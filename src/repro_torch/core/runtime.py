@@ -472,7 +472,7 @@ class RuntimeCore(ServingSystem):
         req.prefill_instance = iid
         req.state = RequestState.PREFILLING
         # tenant labels reach the scheduler only when a registry is armed:
-        # a registry-less run stays exact legacy FIFO even on a
+        # a registry-less run stays exact plain FIFO even on a
         # tenant-labelled trace (WDRR is part of the tenancy subsystem, §10)
         tenant = weight = None
         if self.tenants is not None and req.tenant_id is not None:

@@ -71,12 +71,15 @@ class ArrowEngineCluster(RuntimeCore):
                  deflection=None, speculate: int = 0,
                  draft_layers: Optional[int] = None, health=False,
                  device="cuda"):
+        # the port has one step path; the keyword stays only because the
+        # serving benchmark passes step_mode="fused"
+        if step_mode != "fused":
+            raise ValueError(f"step_mode must be 'fused', not {step_mode!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.capacity = capacity
         self.n_slots = n_slots
         self.chunk_tokens = chunk_tokens
-        self.step_mode = step_mode
         self.run_seed = int(seed)
         self.speculate = int(speculate)
         self.draft_layers = draft_layers
@@ -126,7 +129,7 @@ class ArrowEngineCluster(RuntimeCore):
         inst = EngineInstance(
             iid, self.cfg, self.params, n_slots=self.n_slots,
             capacity=self.capacity, chunk_tokens=self.chunk_tokens,
-            step_mode=self.step_mode, run_seed=self.run_seed,
+            run_seed=self.run_seed,
             speculate=self.speculate, draft_layers=self.draft_layers,
             device=self.device)
         inst.tracer = self._tracer
@@ -563,11 +566,7 @@ class ArrowEngineCluster(RuntimeCore):
         if tr is not None:
             span = tr.open("instance.dispatch", iid, t_start)
         chunks = []
-        # the legacy baseline is the *pre-fusion* path faithfully: it
-        # processed at most one prefill chunk per cooperative pass
-        plan_chunks = (plan.prefill_chunks[:1] if self.step_mode == "legacy"
-                       else plan.prefill_chunks)
-        for rid, start, ln in plan_chunks:
+        for rid, start, ln in plan.prefill_chunks:
             handle = self._live.get(rid)
             if handle is None:
                 continue
@@ -597,8 +596,6 @@ class ArrowEngineCluster(RuntimeCore):
             chunks.append(ChunkWork(rid, start, ln,
                                     prompt[start:start + ln],
                                     handle.req.input_len))
-        if tr is not None:
-            graph0 = (inst.graph_replays, inst.graph_captures)
         pending = inst.dispatch_step(plan.decode_rids, chunks)
         if pending is None:
             if tr is not None:
@@ -611,22 +608,8 @@ class ArrowEngineCluster(RuntimeCore):
         t_disp = self.clock.now()
         if tr is not None:
             tr.close(span, t_disp)
-            kv = inst.kv
-            tr.count(span, "decode_rows", len(plan.decode_rids))
-            tr.count(span, "batch_rows",
-                     kv.n_slots if plan.decode_rids else 0)
-            tr.count(span, "prompt_tokens", sum(cw.length for cw in chunks))
-            tr.count(span, "kv_tokens",
-                     sum(kv.len_of.get(r, 0) for r in kv.slot_of))
-            tr.count(span, "kv_reserved", kv.n_slots * inst.capacity)
-            if inst.cfg.family != "dense":         # constant-state slabs
-                tr.count(span, "state_bytes",
-                         sum(kv.state_bytes(r) for r in kv.slot_of))
-                tr.count(span, "state_reserved_bytes", kv.reserved_bytes())
-                tr.count(span, "chunk_calls", len(chunks))
-            tr.count(span, "graph_replays", inst.graph_replays - graph0[0])
-            tr.count(span, "graph_captures",
-                     inst.graph_captures - graph0[1])
+            for name, value in inst.dispatch_counters(pending).items():
+                tr.count(span, name, value)
         return pending, chunks, t_start, t_disp
 
     def _finalize_instance_step(self, iid: int, inst: EngineInstance,

@@ -1,7 +1,10 @@
 """Fused per-instance engine step for the dense, ssm (Mamba-2) and hybrid
-(RecurrentGemma) families: the whole mixed plan (decode batch, then every
-prefill chunk) as one host call that enqueues its device work without a
-sync, with on-device replayable sampling.
+(RecurrentGemma) families. Each family has two entry points, looked up by
+``ops_for``: ``decode`` runs the batched decode over every slot, ``chunks``
+every prefill chunk of the plan in order; the instance calls the decode
+half first (so the parked slots' dummy writes land before any chunk
+overwrites them), then ``chunks`` once per chunk group. Each enqueues its
+device work without a sync, with on-device replayable sampling.
 
 The decode-state slabs (``SlotKVCache``'s ``k``, ``v``, ``pos_map``; the
 ssm ``conv``/``ssm`` slabs; the hybrid cache dict) are updated **in place**
@@ -16,13 +19,12 @@ Token selection stays on device. Each row samples with a key derived
 bit-identical to JAX's threefry keys (:mod:`repro_torch.engine.prng`) — so a
 stream replays across runs, across KV migration and crash-recovery
 re-prefill. ``temperature <= 0`` selects the exact argmax on the un-cast
-logits. Each entry point returns a single stacked int32 token tensor, which
-the instance fetches with one device-to-host copy at finalize time.
-``spec_decode`` is the dense family's self-speculative round.
+logits. Each entry point returns one int32 token tensor, which the instance
+fetches, stacked with the step's others, in one device-to-host copy at
+finalize time. ``spec_decode`` is the dense family's self-speculative
+round.
 """
 from __future__ import annotations
-
-from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -72,15 +74,15 @@ def sample_tokens(cfg, logits, temps, top_ps, seeds, rids, pos):
     return toks
 
 
-# ------------------------------------------------------------ core steps
+# ------------------------------------------------------------ dense steps
 
-def _decode_core(cfg, params, k, v, pos_map, tokens, pos, temps, top_ps,
-                 seeds, rids):
+def decode(cfg, params, k, v, pos_map, tokens, pos, temps, top_ps, seeds,
+           rids, active):
     """Batched decode over every slot (active rows carry real tokens,
     parked slots get the dummy write at their own next position — see
-    EngineInstance.dispatch_step). ``tokens`` (B,1) is a device tensor,
-    ``pos`` a host array. Returns per-slot sampled tokens, keyed by each
-    row's absolute position."""
+    EngineInstance.dispatch_step — so ``active`` is not read). ``tokens``
+    (B,1) is a device tensor, ``pos`` a host array. Returns per-slot
+    sampled tokens (B,), keyed by each row's absolute position."""
     x = dense.embed_tokens(cfg, params, tokens)
     logits, _ = dense.decode_step(
         cfg, params, {"k": k, "v": v, "pos_map": pos_map}, x,
@@ -88,16 +90,16 @@ def _decode_core(cfg, params, k, v, pos_map, tokens, pos, temps, top_ps,
     return sample_tokens(cfg, logits[:, 0], temps, top_ps, seeds, rids, pos)
 
 
-def _chunk_scan(cfg, params, k, v, pos_map, toks, slots, offsets, lens,
-                temps, top_ps, seeds, rids):
-    """Run every prefill chunk of the plan against its own slot, in order
+def chunks(cfg, params, k, v, pos_map, toks, slots, offsets, lens, temps,
+           top_ps, seeds, rids):
+    """Run every prefill chunk of the group against its own slot, in order
     (chunks target distinct slots, so the order only matters vs the decode
     dummy-writes, which ran first). ``toks`` is a (N, Sq) device tensor of
     bucket-padded chunk tokens; ``slots``/``offsets``/``lens`` are host
     arrays. Pad positions [off+len, off+Sq) are invalidated in the pos_map.
-    Returns the per-chunk sampled token at each chunk's last real token,
-    keyed by its absolute position ``offset + len - 1`` (meaningful only
-    for final chunks; the host decides which)."""
+    Returns the per-chunk sampled token (N,) at each chunk's last real
+    token, keyed by its absolute position ``offset + len - 1`` (meaningful
+    only for final chunks; the host decides which)."""
     Sq = toks.shape[1]
     last_rows = []
     for i in range(toks.shape[0]):
@@ -112,33 +114,6 @@ def _chunk_scan(cfg, params, k, v, pos_map, toks, slots, offsets, lens,
                 + np.maximum(np.asarray(lens, np.int64) - 1, 0))
     return sample_tokens(cfg, torch.stack(last_rows), temps, top_ps, seeds,
                         rids, last_pos)
-
-
-def decode_only(cfg, params, k, v, pos_map, tokens, pos, temps, top_ps,
-                seeds, rids):
-    """Decode batch, no prefill chunks. -> (B,) tokens."""
-    return _decode_core(cfg, params, k, v, pos_map, tokens, pos, temps,
-                        top_ps, seeds, rids)
-
-
-def chunks_only(cfg, params, k, v, pos_map, toks, slots, offsets, lens,
-                temps, top_ps, seeds, rids):
-    """Prefill chunks, no decode. -> (N,) tokens."""
-    return _chunk_scan(cfg, params, k, v, pos_map, toks, slots, offsets,
-                       lens, temps, top_ps, seeds, rids)
-
-
-def mixed_step(cfg, params, k, v, pos_map, tokens, pos, dtemps, dtop_ps,
-               dseeds, drids, toks, slots, offsets, lens, ctemps, ctop_ps,
-               cseeds, crids):
-    """The LocalScheduler's full mixed plan — decode batch first (so
-    parked-slot dummy writes land before chunks overwrite them), then every
-    prefill chunk. -> (B+N,) stacked tokens."""
-    dtoks = _decode_core(cfg, params, k, v, pos_map, tokens, pos, dtemps,
-                         dtop_ps, dseeds, drids)
-    ctoks = _chunk_scan(cfg, params, k, v, pos_map, toks, slots, offsets,
-                        lens, ctemps, ctop_ps, cseeds, crids)
-    return torch.cat([dtoks, ctoks])
 
 
 def prefill_place(cfg, params, k, v, pos_map, tokens, slot, length, temp,
@@ -252,10 +227,10 @@ def spec_decode(cfg, draft_layers, k_draft, params, k, v, pos_map, tokens,
 #
 # Same calling convention as the dense entries but over the family's
 # decode-state slabs. Two differences forced by recurrence: the decode batch
-# carries an explicit ``active`` mask (a recurrent update is irreversible,
-# so parked slots keep their old state instead of the dense dummy-write
-# trick: the model writes only the active rows), and chunked prefill passes
-# each chunk's ``valid_len`` into the model so pad positions leave the state
+# reads the ``active`` mask (a recurrent update is irreversible, so parked
+# slots keep their old state instead of the dense dummy-write trick: the
+# model writes only the active rows), and chunked prefill passes each
+# chunk's ``valid_len`` into the model so pad positions leave the state
 # untouched.
 
 
@@ -296,18 +271,18 @@ def _ssm_view(conv, ssm):
     return lambda s: {"conv": conv[:, s:s + 1], "ssm": ssm[:, s:s + 1]}
 
 
-def ssm_decode_only(cfg, params, conv, ssm, tokens, pos, temps, top_ps,
-                    seeds, rids, active):
+def ssm_decode(cfg, params, conv, ssm, tokens, pos, temps, top_ps, seeds,
+               rids, active):
     return _recurrent_decode(ssm_models, cfg, params,
                              {"conv": conv, "ssm": ssm}, tokens, pos, temps,
                              top_ps, seeds, rids, active)
 
 
 def ssm_decode_greedy(cfg, params, conv, ssm, tokens, mask):
-    """:func:`ssm_decode_only` for a batch whose rows are all greedy, in a
-    form a CUDA graph captures: every argument a device tensor of fixed
-    shape, the state written where the (B,) bool ``mask`` is set, and the
-    argmax of ``sample_tokens``' greedy branch. -> (B,) int32."""
+    """:func:`ssm_decode` for a batch whose rows are all greedy, in a form
+    a CUDA graph captures: every argument a device tensor of fixed shape,
+    the state written where the (B,) bool ``mask`` is set, and the argmax
+    of ``sample_tokens``' greedy branch. -> (B,) int32."""
     x = ssm_models.embed_tokens(cfg, params, tokens)
     logits, _ = ssm_models.decode_step(cfg, params,
                                        {"conv": conv, "ssm": ssm}, x,
@@ -316,21 +291,11 @@ def ssm_decode_greedy(cfg, params, conv, ssm, tokens, mask):
         torch.int32)
 
 
-def ssm_chunks_only(cfg, params, conv, ssm, toks, slots, offsets, lens,
-                    temps, top_ps, seeds, rids):
+def ssm_chunks(cfg, params, conv, ssm, toks, slots, offsets, lens, temps,
+               top_ps, seeds, rids):
     return _recurrent_chunks(ssm_models, _ssm_view(conv, ssm), cfg, params,
                              toks, slots, offsets, lens, temps, top_ps,
                              seeds, rids)
-
-
-def ssm_mixed_step(cfg, params, conv, ssm, tokens, pos, dtemps, dtop_ps,
-                   dseeds, drids, active, toks, slots, offsets, lens, ctemps,
-                   ctop_ps, cseeds, crids):
-    dtoks = ssm_decode_only(cfg, params, conv, ssm, tokens, pos, dtemps,
-                            dtop_ps, dseeds, drids, active)
-    ctoks = ssm_chunks_only(cfg, params, conv, ssm, toks, slots, offsets,
-                            lens, ctemps, ctop_ps, cseeds, crids)
-    return torch.cat([dtoks, ctoks])
 
 
 def _hyb_view(cache):
@@ -344,46 +309,29 @@ def _hyb_view(cache):
     return view
 
 
-def hybrid_decode_only(cfg, params, cache, tokens, pos, temps, top_ps,
-                       seeds, rids, active):
+def hybrid_decode(cfg, params, cache, tokens, pos, temps, top_ps, seeds,
+                  rids, active):
     return _recurrent_decode(hybrid, cfg, params, cache, tokens, pos, temps,
                              top_ps, seeds, rids, active)
 
 
-def hybrid_chunks_only(cfg, params, cache, toks, slots, offsets, lens,
-                       temps, top_ps, seeds, rids):
+def hybrid_chunks(cfg, params, cache, toks, slots, offsets, lens, temps,
+                  top_ps, seeds, rids):
     return _recurrent_chunks(hybrid, _hyb_view(cache), cfg, params, toks,
                              slots, offsets, lens, temps, top_ps, seeds,
                              rids)
 
 
-def hybrid_mixed_step(cfg, params, cache, tokens, pos, dtemps, dtop_ps,
-                      dseeds, drids, active, toks, slots, offsets, lens,
-                      ctemps, ctop_ps, cseeds, crids):
-    dtoks = hybrid_decode_only(cfg, params, cache, tokens, pos, dtemps,
-                               dtop_ps, dseeds, drids, active)
-    ctoks = hybrid_chunks_only(cfg, params, cache, toks, slots, offsets,
-                               lens, ctemps, ctop_ps, cseeds, crids)
-    return torch.cat([dtoks, ctoks])
-
-
 # ---------------------------------------------------- family dispatch
 
-_OPS = {
-    "dense": SimpleNamespace(decode_only=decode_only, chunks_only=chunks_only,
-                             mixed_step=mixed_step),
-    "ssm": SimpleNamespace(decode_only=ssm_decode_only,
-                           chunks_only=ssm_chunks_only,
-                           mixed_step=ssm_mixed_step),
-    "hybrid": SimpleNamespace(decode_only=hybrid_decode_only,
-                              chunks_only=hybrid_chunks_only,
-                              mixed_step=hybrid_mixed_step),
-}
+_OPS = {"dense": (decode, chunks),
+        "ssm": (ssm_decode, ssm_chunks),
+        "hybrid": (hybrid_decode, hybrid_chunks)}
 
 
 def ops_for(family: str):
-    """The family's fused-step entry points, with the calling convention
-    ``op(cfg, params, *slots.slabs(), *step_args) -> tokens``."""
+    """The family's ``(decode, chunks)`` entry points, with the calling
+    convention ``op(cfg, params, *slots.slabs(), *step_args) -> tokens``."""
     if family not in _OPS:
         raise NotImplementedError(
             f"no fused step for family {family!r} yet (dense, ssm and "

@@ -4,27 +4,27 @@ families), slot-granular decode state and the Arrow local scheduler.
 role; it executes whatever sub-requests the global scheduler hands it.
 
 Execution model: the LocalScheduler's mixed plan — the full decode batch
-plus every prefill chunk — runs as one fused step that writes the KV slabs
-in place (``repro_torch.engine.fused_step``). ``dispatch_step`` enqueues the
-device work and returns immediately with the device-side token tensors and
-a CUDA event; ``finalize_step`` performs the step's single device-to-host
-copy and advances the host bookkeeping, so a cluster can dispatch every
-instance before fetching any.
+plus every prefill chunk — runs as one fused step that writes the decode
+state in place (``repro_torch.engine.fused_step``): the decode half first,
+then each group of chunks. ``dispatch_step`` enqueues the device work and
+returns immediately with the device-side token tensors and a CUDA event;
+``finalize_step`` performs the step's single device-to-host copy and
+advances the host bookkeeping, so a cluster can dispatch every instance
+before fetching any.
 
-``speculate=k`` (dense only) turns each decode step whose rows all have
-room into a self-speculative round (``fused_step.spec_decode``): k draft
-tokens from the first ``draft_layers`` layers, one verify over the k+1
-positions, and the longest agreeing prefix plus one token emitted — the
-sequential stream, id for id. ``step_mode="legacy"`` (dense only) keeps the
-pre-fusion per-rid path as the benchmark baseline: per-request sampling
-syncs, a full functional copy of the KV slabs per decode iteration, and a
-host ``pos_map`` round trip per prefill chunk.
+The decode half is one of three, chosen from what the instance observes:
+with ``speculate=k`` (dense only), a decode step whose rows all have room
+is a self-speculative round (``fused_step.spec_decode``): k draft tokens
+from the first ``draft_layers`` layers, one verify over the k+1 positions,
+and the longest agreeing prefix plus one token emitted — the sequential
+stream, id for id. A Mamba-2 instance on a card captures its greedy decode
+step once as a CUDA graph and replays it on every decode batch whose rows
+are all greedy (``repro_torch.engine.decode_graph``). Every other decode
+batch runs the family's eager ``decode``.
 
 The decode state is per family (``repro_torch.engine.state_slots``): KV
 rings for dense models, constant-size recurrent state for Mamba-2 and
-RecurrentGemma. A Mamba-2 instance on a card captures its greedy decode
-step once as a CUDA graph and replays it on every decode batch whose rows
-are all greedy (``repro_torch.engine.decode_graph``).
+RecurrentGemma.
 """
 from __future__ import annotations
 
@@ -41,7 +41,6 @@ from repro_torch.engine import decode_graph, fused_step as fs
 from repro_torch.engine.state_slots import (byte_image, make_state_slots,
                                             split_image)
 from repro_torch.kernels.crc32 import crc32_op
-from repro_torch.models import dense
 
 
 def resolve_device(device) -> torch.device:
@@ -105,62 +104,52 @@ class ChunkWork:
 
 
 class PendingStep:
-    """A dispatched step whose token tensors still live on device. Groups
-    are (chunks, device_tokens) pairs; when ``decode_in_group0`` the first
-    group carries the decode batch's per-slot tokens stacked ahead of its
-    chunk tokens. ``spec`` holds a speculative round's packed (B, k+2)
-    ``[a, g_0..g_k]`` tensor. ``ready`` polls a CUDA event recorded after
-    the step's work (always True on the CPU, where the work already ran);
-    ``fetch`` is the step's one device-to-host copy."""
+    """A dispatched step whose token tensors still live on device:
+    ``decode`` the decode half's (B,) per-slot tokens (None when the step
+    has no decode rows or runs a speculative round), ``spec`` a speculative
+    round's packed (B, k+2) ``[a, g_0..g_k]`` tensor, ``groups`` the
+    (chunks, (N,) tokens) pairs of the chunk groups. ``ready`` polls a CUDA
+    event recorded after the step's work (always True on the CPU, where
+    the work already ran); ``fetch`` is the step's one device-to-host copy.
+    A traced dispatch sets ``graph0``, the instance's graph counts before
+    it (``EngineInstance.dispatch_counters``)."""
 
-    def __init__(self, decode_rids: List[int],
-                 groups: List[Tuple[List[ChunkWork], Any]],
-                 spec: Any = None, decode_in_group0: bool = True):
+    def __init__(self, decode_rids: List[int], decode: Any, spec: Any,
+                 groups: List[Tuple[List[ChunkWork], Any]]):
         self.decode_rids = decode_rids
-        self.groups = groups
+        self.decode = decode
         self.spec = spec
-        self.decode_in_group0 = decode_in_group0
+        self.groups = groups
         self.event = None
-        parts = self._parts()
-        dev = parts[0].device if parts else None
-        if dev is not None and dev.type == "cuda":
+        dev = self._parts()[0].device
+        if dev.type == "cuda":
             self.event = torch.cuda.Event()
             self.event.record(torch.cuda.current_stream(dev))
 
     def _parts(self) -> List[torch.Tensor]:
-        head = [] if self.spec is None else [self.spec.reshape(-1)]
+        head = [t.reshape(-1) for t in (self.spec, self.decode)
+                if t is not None]
         return head + [arr for _, arr in self.groups]
 
     def ready(self) -> bool:
         return self.event is None or self.event.query()
 
-    def fetch(self) -> Tuple[Optional[np.ndarray], List[np.ndarray]]:
-        """(the packed speculative array or None, each group's tokens),
-        from one device-to-host copy of everything stacked."""
+    def fetch(self) -> Tuple[Optional[np.ndarray], Optional[np.ndarray],
+                             List[np.ndarray]]:
+        """(the packed speculative array or None, the decode tokens or
+        None, each group's tokens), from one device-to-host copy of
+        everything stacked."""
         parts = self._parts()
-        if not parts:
-            return None, []
         flat = (parts[0] if len(parts) == 1 else torch.cat(parts)).cpu()
         flat = flat.numpy()
         out, i = [], 0
         for p in parts:
             out.append(flat[i:i + p.shape[0]])
             i += p.shape[0]
-        if self.spec is None:
-            return None, out
-        return out[0].reshape(self.spec.shape), out[1:]
-
-
-class _EagerStep:
-    """Legacy-mode stand-in: results were computed synchronously."""
-
-    def __init__(self, decode_out: Dict[int, int],
-                 chunk_out: List[Tuple[int, Optional[int]]]):
-        self.decode_out = decode_out
-        self.chunk_out = chunk_out
-
-    def ready(self) -> bool:
-        return True
+        spec = None if self.spec is None else out.pop(0).reshape(
+            self.spec.shape)
+        decode = None if self.decode is None else out.pop(0)
+        return spec, decode, out
 
 
 def _bucket32(n: int, cap: int) -> int:
@@ -170,19 +159,12 @@ def _bucket32(n: int, cap: int) -> int:
 class EngineInstance:
     def __init__(self, iid: int, cfg: ModelConfig, params, *,
                  n_slots: int = 8, capacity: int = 256,
-                 chunk_tokens: Optional[int] = None,
-                 step_mode: str = "fused", run_seed: int = 0,
+                 chunk_tokens: Optional[int] = None, run_seed: int = 0,
                  speculate: int = 0, draft_layers: Optional[int] = None,
                  device="cuda"):
         if cfg.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"no engine decode state for family {cfg.family!r}")
-        if step_mode not in ("fused", "legacy"):
-            raise ValueError(f"step_mode must be 'fused' or 'legacy', not "
-                             f"{step_mode!r}")
-        if step_mode == "legacy" and cfg.family != "dense":
-            raise ValueError(f"the {cfg.family} family has no legacy "
-                             "(pre-fusion) step path")
         self.device = resolve_device(device)
         self.run_seed = int(run_seed)
         self.speculate = int(speculate)
@@ -192,9 +174,8 @@ class EngineInstance:
         self.cfg = cfg
         self.params = params
         self.capacity = capacity
-        self.step_mode = step_mode
         self.kv = make_state_slots(cfg, n_slots, capacity, self.device)
-        self._ops = fs.ops_for(cfg.family)
+        self._decode, self._chunks = fs.ops_for(cfg.family)
         # the greedy decode step as one CUDA graph, captured now, while
         # every slot is free (engine/decode_graph.py); None: always eager
         self._graph = (decode_graph.SSMDecodeGraph(cfg, params, self.kv)
@@ -203,14 +184,10 @@ class EngineInstance:
             # a rejected draft cannot roll back a recurrent state update,
             # so constant-state families serve the plain sequential stream
             self.speculate = 0
-        if self.speculate:
-            if step_mode != "fused":
-                raise ValueError("self-speculative decoding needs the fused "
-                                 "step path")
-            if not 1 <= self.draft_layers < cfg.n_layers:
-                raise ValueError(
-                    f"draft_layers must be a strict truncation of the "
-                    f"model: 1 <= {self.draft_layers} < {cfg.n_layers}")
+        if self.speculate and not 1 <= self.draft_layers < cfg.n_layers:
+            raise ValueError(
+                f"draft_layers must be a strict truncation of the model: "
+                f"1 <= {self.draft_layers} < {cfg.n_layers}")
         self.local = LocalScheduler(
             iid, token_budget=chunk_tokens or capacity,
             mixed_chunk_budget=chunk_tokens or 2048,
@@ -274,16 +251,6 @@ class EngineInstance:
             rids[s] = rid & 0x7FFFFFFF
         return temps, tops, seeds, rids
 
-    def _sample_row(self, row, t: float, p: float, sd: int, rid: int,
-                    pos: int) -> int:
-        """Single-row selection for the legacy (eager) paths, through the
-        sampler the fused step uses — legacy and fused streams stay equal
-        under sampling, not just under argmax. One sync per call."""
-        return int(fs.sample_tokens(
-            self.cfg, row[None], np.array([t], np.float32),
-            np.array([p], np.float32), np.array([sd]), np.array([rid]),
-            np.array([pos])).cpu()[0])
-
     # ----------------------------------------------------------- prefill
     def run_prefill(self, rid: int, prompt: np.ndarray) -> int:
         """Whole-prompt prefill; returns the first output token (o_1).
@@ -302,23 +269,11 @@ class EngineInstance:
         padded[:S] = prompt
         s = self.alloc_slot(rid)
         t, p, sd = self._samp_of(rid)
-        sd &= 0x7FFFFFFF
-        rid_m = rid & 0x7FFFFFFF
-        if self.step_mode == "legacy":
-            x = dense.embed_tokens(self.cfg, self.params,
-                                   self._dev(padded)[None])
-            logits, cache = dense.forward_seq(
-                self.cfg, self.params, x,
-                torch.arange(S_pad, device=self.device),
-                cache_capacity=self.capacity)
-            self.kv.place(rid, cache["k"][:, 0], cache["v"][:, 0], S)
-            tok = self._sample_row(logits[0, S - 1], t, p, sd, rid_m, S - 1)
-        else:
-            tok = fs.prefill_place(
-                self.cfg, self.params, *self.kv.slabs(), self._dev(padded),
-                s, S, t, p, sd, rid_m)
-            self.kv.len_of[rid] = S
-            tok = int(tok.cpu()[0])
+        tok = fs.prefill_place(
+            self.cfg, self.params, *self.kv.slabs(), self._dev(padded), s, S,
+            t, p, sd & 0x7FFFFFFF, rid & 0x7FFFFFFF)
+        self.kv.len_of[rid] = S
+        tok = int(tok.cpu()[0])
         self.last_token[rid] = tok
         self.generated[rid] = [tok]
         return tok
@@ -360,38 +315,33 @@ class EngineInstance:
     # ------------------------------------------------------- fused step
     def dispatch_step(self, decode_rids: List[int],
                       chunks: Sequence[ChunkWork]):
-        """Enqueue this instance's whole iteration — the decode batch plus
-        every prefill chunk — on device and return without a sync. The KV
+        """Enqueue this instance's whole iteration on device and return
+        without a sync: the decode half (a speculative round, a replay of
+        the decode graph, or the family's eager ``decode``), then every
+        group of prefill chunks through the family's ``chunks``. The state
         slabs are written in place; token ids stay on device until
         :meth:`finalize_step`."""
         if not decode_rids and not chunks:
             return None
-        if self.step_mode == "legacy":
-            return self._legacy_step(decode_rids, chunks)
         # spans: instance.prepare while this method builds host arrays and
         # uploads tokens, instance.launch over each fused_step call (its own
-        # host arrays and uploads, then the kernels' enqueue)
+        # host arrays and uploads, then the kernels' enqueue) or replay
         tr = self.tracer
         if tr is not None:
+            graph0 = (self.graph_replays, self.graph_captures)
             span = tr.open("instance.prepare", self.iid)
-        dec_args = None
-        dec_toks = None           # the decode half, replayed from the graph
-        spec = None
-        # speculative round: every active row must fit its k drafts plus
-        # the bonus token; otherwise fall back to plain decode this step
-        use_spec = bool(self.speculate and decode_rids and
-                        all(self.kv.len_of[r] + self.speculate + 1
-                            <= self.capacity for r in decode_rids))
+        dec = spec = None
         if decode_rids:
             B = self.kv.n_slots
             tokens = np.zeros((B, 1), np.int32)
             pos = np.zeros((B,), np.int32)
             active = np.zeros((B,), bool)
             # Inactive-but-occupied slots (e.g. parked awaiting migration)
-            # still get a batched dummy write; aim it at the slot's own next
-            # position, which any real future decode/chunk overwrites before
-            # attending to it. (A speculative round restores the bytes its
-            # draft wrote there and never verifies the parked rows.)
+            # still get a batched dummy write in the dense family; aim it at
+            # the slot's own next position, which any real future
+            # decode/chunk overwrites before attending to it. (A speculative
+            # round restores the bytes its draft wrote there and never
+            # verifies the parked rows; recurrent families mask them out.)
             for rid, s in self.kv.slot_of.items():
                 pos[s] = min(self.kv.len_of.get(rid, 0), self.capacity - 1)
             for rid in decode_rids:
@@ -400,25 +350,28 @@ class EngineInstance:
                 pos[s] = self.kv.len_of[rid]
                 active[s] = True
             samp = self._slot_samp_arrays(decode_rids)
+            # speculative round: every active row must fit its k drafts plus
+            # the bonus token; otherwise plain decode this step
+            use_spec = self.speculate and all(
+                self.kv.len_of[r] + self.speculate + 1 <= self.capacity
+                for r in decode_rids)
+            use_graph = (not use_spec and self._graph is not None
+                         and not (samp[0] > 0).any())
+            dev_tokens = None if use_graph else self._dev(tokens)
+            if tr is not None:
+                span = tr.next(span, "instance.launch", self.iid)
             if use_spec:
-                if tr is not None:
-                    span = tr.next(span, "instance.launch", self.iid)
                 spec = fs.spec_decode(
                     self.cfg, self.draft_layers, self.speculate,
-                    self.params, *self.kv.slabs(), self._dev(tokens), pos,
-                    *samp, active)
-            elif self._graph is not None and not (samp[0] > 0).any():
-                if tr is not None:
-                    span = tr.next(span, "instance.launch", self.iid)
-                dec_toks = self._graph.replay(tokens, active)
+                    self.params, *self.kv.slabs(), dev_tokens, pos, *samp,
+                    active)
+            elif use_graph:
+                dec = self._graph.replay(tokens, active)
             else:
-                dec_args = (self._dev(tokens), pos) + samp
-                if self.kv.needs_active_mask:
-                    # recurrent state has no harmless dummy-write: parked
-                    # slots are masked out inside the fused step instead
-                    dec_args += (active,)
+                dec = self._decode(self.cfg, self.params, *self.kv.slabs(),
+                                   dev_tokens, pos, *samp, active)
         groups: List[Tuple[List[ChunkWork], Any]] = []
-        for gi, (Sq, group) in enumerate(self._group_chunks(chunks)):
+        for Sq, group in self._group_chunks(chunks):
             if tr is not None:
                 span = tr.next(span, "instance.prepare", self.iid)
             n = len(group)
@@ -443,33 +396,30 @@ class EngineInstance:
                       cseeds, crids)
             if tr is not None:
                 span = tr.next(span, "instance.launch", self.iid)
-            if gi == 0 and dec_args is not None:
-                out = self._ops.mixed_step(
-                    self.cfg, self.params, *self.kv.slabs(), *dec_args,
-                    *c_args)
-            elif gi == 0 and dec_toks is not None:
-                # the replayed decode half, then the chunks eager, in the
-                # mixed step's order
-                out = torch.cat([dec_toks, self._ops.chunks_only(
-                    self.cfg, self.params, *self.kv.slabs(), *c_args)])
-            else:
-                out = self._ops.chunks_only(
-                    self.cfg, self.params, *self.kv.slabs(), *c_args)
-            groups.append((group, out))
-        if not groups and dec_args is not None:
-            if tr is not None:
-                span = tr.next(span, "instance.launch", self.iid)
-            out = self._ops.decode_only(
-                self.cfg, self.params, *self.kv.slabs(), *dec_args)
-            groups.append(([], out))
-        if not groups and dec_toks is not None:
-            groups.append(([], dec_toks))
-        pending = PendingStep(list(decode_rids), groups, spec=spec,
-                              decode_in_group0=dec_args is not None
-                              or dec_toks is not None)
+            groups.append((group, self._chunks(
+                self.cfg, self.params, *self.kv.slabs(), *c_args)))
+        pending = PendingStep(list(decode_rids), dec, spec, groups)
         if tr is not None:
+            pending.graph0 = graph0
             tr.close(span)
         return pending
+
+    def dispatch_counters(self, pending: PendingStep) -> Dict[str, int]:
+        """The counters of the traced dispatch ``pending``, as its
+        instance holds them just after it: the rows and prompt tokens it
+        was given, what the slots hold (``state_slots.counters``), the
+        chunks run one after another in a constant-state family, and the
+        graph replays and captures it made."""
+        chunks = [cw for group, _ in pending.groups for cw in group]
+        out = {"decode_rows": len(pending.decode_rids),
+               "batch_rows": self.kv.n_slots if pending.decode_rids else 0,
+               "prompt_tokens": sum(cw.length for cw in chunks),
+               **self.kv.counters()}
+        if self.cfg.family != "dense":
+            out["chunk_calls"] = len(chunks)
+        out["graph_replays"] = self.graph_replays - pending.graph0[0]
+        out["graph_captures"] = self.graph_captures - pending.graph0[1]
+        return out
 
     def finalize_step(self, pending) -> Tuple[Dict[int, Any],
                                               List[Tuple[int, Optional[int]]]]:
@@ -479,36 +429,25 @@ class EngineInstance:
         o_1|None) in dispatch order)."""
         if pending is None:
             return {}, []
-        if isinstance(pending, _EagerStep):
-            return pending.decode_out, pending.chunk_out
         decode_out: Dict[int, Any] = {}
         chunk_out: List[Tuple[int, Optional[int]]] = []
-        spec_np, arrays = pending.fetch()
-        if spec_np is not None:
-            for rid in pending.decode_rids:
-                s = self.kv.slot_of[rid]
-                a = int(spec_np[s, 0])
-                toks = [int(x) for x in spec_np[s, 1:a + 2]]
-                self.kv.advance(rid, len(toks))
-                self.last_token[rid] = toks[-1]
-                self.generated[rid].extend(toks)
-                decode_out[rid] = toks
-        for gi, ((group, _), a) in enumerate(zip(pending.groups, arrays)):
-            base = 0
-            if gi == 0 and pending.decode_in_group0 and pending.decode_rids:
-                for rid in pending.decode_rids:
-                    s = self.kv.slot_of[rid]
-                    tok = int(a[s])
-                    self.kv.advance(rid)
-                    self.last_token[rid] = tok
-                    self.generated[rid].append(tok)
-                    decode_out[rid] = tok
-                base = self.kv.n_slots
-            for i, cw in enumerate(group):
+        spec_np, dec_np, arrays = pending.fetch()
+        for rid in pending.decode_rids:
+            s = self.kv.slot_of[rid]
+            if spec_np is None:
+                toks = [int(dec_np[s])]
+            else:
+                toks = [int(x) for x in spec_np[s, 1:int(spec_np[s, 0]) + 2]]
+            self.kv.advance(rid, len(toks))
+            self.last_token[rid] = toks[-1]
+            self.generated[rid].extend(toks)
+            decode_out[rid] = toks[0] if spec_np is None else toks
+        for (group, _), a in zip(pending.groups, arrays):
+            for cw, tok in zip(group, a):
                 end = cw.offset + cw.length
                 if end >= cw.total_len:
                     self.kv.len_of[cw.rid] = cw.total_len
-                    tok = int(a[base + i])
+                    tok = int(tok)
                     self.last_token[cw.rid] = tok
                     self.generated[cw.rid] = [tok]
                     chunk_out.append((cw.rid, tok))
@@ -528,79 +467,6 @@ class EngineInstance:
                     self.capacity - cw.offset)
             by_w.setdefault(w, []).append(cw)
         return [(w, g) for w, g in by_w.items()]
-
-    # -------------------------------------------------- legacy baseline
-    def _legacy_step(self, decode_rids: List[int],
-                     chunks: Sequence[ChunkWork]) -> _EagerStep:
-        decode_out = self._legacy_decode(decode_rids) if decode_rids else {}
-        chunk_out = [(cw.rid, self._legacy_chunk(cw)) for cw in chunks]
-        return _EagerStep(decode_out, chunk_out)
-
-    def _legacy_decode(self, rids: List[int]) -> Dict[int, int]:
-        """Pre-fusion decode, kept as the bench baseline: the step runs on
-        a full copy of the KV slabs that is then copied back, and fetches
-        the sampled tokens once per iteration."""
-        B = self.kv.n_slots
-        tokens = np.zeros((B, 1), np.int32)
-        pos = np.zeros((B,), np.int32)
-        for rid, s in self.kv.slot_of.items():
-            pos[s] = min(self.kv.len_of.get(rid, 0), self.capacity - 1)
-        for rid in rids:
-            s = self.kv.slot_of[rid]
-            tokens[s, 0] = self.last_token[rid]
-            pos[s] = self.kv.len_of[rid]
-        x = dense.embed_tokens(self.cfg, self.params, self._dev(tokens))
-        logits, cache = dense.decode_step(
-            self.cfg, self.params, self.kv.as_model_cache(), x,
-            self._dev(pos))
-        self.kv.update_from_model_cache(cache)
-        arg = fs.sample_tokens(self.cfg, logits[:, 0],
-                               *self._slot_samp_arrays(rids),
-                               pos).cpu().numpy()
-        out: Dict[int, int] = {}
-        for rid in rids:
-            s = self.kv.slot_of[rid]
-            tok = int(arg[s])
-            self.kv.advance(rid)
-            self.last_token[rid] = tok
-            self.generated[rid].append(tok)
-            out[rid] = tok
-        return out
-
-    def _legacy_chunk(self, cw: ChunkWork) -> Optional[int]:
-        """Pre-fusion chunked prefill: the chunk runs on a copy of its
-        slot's cache that is then written back, with the per-chunk host
-        ``pos_map`` round trip (a writable numpy copy, pad positions set
-        to -1, written back)."""
-        rid, offset, ln = cw.rid, cw.offset, cw.length
-        s = self.kv.slot_of[rid]
-        ln_pad = min(_bucket32(ln, self.capacity), self.capacity - offset)
-        padded = np.zeros((ln_pad,), np.int32)
-        padded[:ln] = cw.tokens
-        x = dense.embed_tokens(self.cfg, self.params,
-                               self._dev(padded)[None])
-        sub = {"k": self.kv.k[:, s:s + 1].clone(),
-               "v": self.kv.v[:, s:s + 1].clone(),
-               "pos_map": self.kv.pos_map[s:s + 1].clone()}
-        logits, sub = dense.prefill_chunk(self.cfg, self.params, sub, x,
-                                          offset)
-        # write back; invalidate pad positions in the pos_map
-        pm = sub["pos_map"][0].cpu().numpy().copy()      # writable copy
-        pm[offset + ln: offset + ln_pad] = -1
-        self.kv.k[:, s] = sub["k"][:, 0]
-        self.kv.v[:, s] = sub["v"][:, 0]
-        self.kv.pos_map[s] = torch.from_numpy(pm).to(self.device)
-        self.kv.len_of[rid] = offset + ln
-        if offset + ln >= cw.total_len:
-            self.kv.len_of[rid] = cw.total_len
-            t, p, sd = self._samp_of(rid)
-            tok = self._sample_row(logits[0, ln - 1], t, p,
-                                   sd & 0x7FFFFFFF, rid & 0x7FFFFFFF,
-                                   offset + ln - 1)
-            self.last_token[rid] = tok
-            self.generated[rid] = [tok]
-            return tok
-        return None
 
     # --------------------------------------------------------- transfer
     def export_state(self, rid: int):

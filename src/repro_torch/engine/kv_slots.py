@@ -7,10 +7,9 @@ contiguous pages of the paged-attention pool.
 
 The slabs are allocated once and every slot operation (place / copy_prefix /
 release) and every fused step writes them **in place**, where the JAX
-package donated them to jitted functions; only the legacy step works on a
-full copy (``as_model_cache``), as the pre-fusion baseline did. A KV
-export stacks k and v into one device tensor (``state_image``), so it
-costs a single device-to-host copy and a single checksum launch.
+package donated them to jitted functions. A KV export stacks k and v into
+one device tensor (``state_image``), so it costs a single device-to-host
+copy and a single checksum launch.
 """
 from __future__ import annotations
 
@@ -25,7 +24,6 @@ class SlotKVCache(StateSlotsBase):
     sizing both apply."""
 
     prefix_reuse = "block"
-    needs_active_mask = False
     supports_speculation = True
 
     def __init__(self, n_layers: int, n_slots: int, capacity: int,
@@ -107,15 +105,3 @@ class SlotKVCache(StateSlotsBase):
         return 2 * n_layers * hk * d * self.k.element_size() \
             * self.len_of[rid]
 
-    # ------------------------------------- the legacy step's functional copy
-    def as_model_cache(self):
-        """A full copy of the slabs in the model's cache layout: the legacy
-        (pre-fusion) decode steps on it, then writes it back with
-        :meth:`update_from_model_cache`."""
-        return {"k": self.k.clone(), "v": self.v.clone(),
-                "pos_map": self.pos_map.clone()}
-
-    def update_from_model_cache(self, cache) -> None:
-        self.k.copy_(cache["k"])
-        self.v.copy_(cache["v"])
-        self.pos_map.copy_(cache["pos_map"])

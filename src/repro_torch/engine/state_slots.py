@@ -79,10 +79,9 @@ class StateSlotsBase:
     #: "block" — per-token KV, any block-aligned prefix is reusable;
     #: "exact" — constant-size recurrent state, only a full-length match.
     prefix_reuse: str = "exact"
-    #: recurrent updates are irreversible, so parked slots must be masked
-    #: out of the fused decode instead of receiving dummy writes, and
-    #: rejected speculation cannot roll the state back.
-    needs_active_mask: bool = True
+    #: recurrent updates are irreversible, so rejected speculation cannot
+    #: roll the state back (and parked slots are masked out of the fused
+    #: decode instead of receiving dummy writes).
     supports_speculation: bool = False
 
     def __init__(self, n_slots: int, capacity: int):
@@ -113,6 +112,13 @@ class StateSlotsBase:
 
     def advance(self, rid: int, n: int = 1) -> None:
         self.len_of[rid] += n
+
+    def counters(self) -> Dict[str, int]:
+        """What the slots hold, for a traced dispatch: ``kv_tokens``
+        (positions held by the occupied slots) and ``kv_reserved`` (slots
+        x capacity)."""
+        return {"kv_tokens": sum(self.len_of.get(r, 0) for r in self.slot_of),
+                "kv_reserved": self.n_slots * self.capacity}
 
     # ----------------------------------------------------- device contract
     def slabs(self) -> tuple:
@@ -193,6 +199,13 @@ class _FixedStateSlots(StateSlotsBase):
 
     def state_bytes(self, rid: int) -> int:
         return self.reserved_bytes() // self.n_slots
+
+    def counters(self) -> Dict[str, int]:
+        """The base's, plus ``state_bytes`` (the bytes of the slab rows the
+        occupied slots hold) and ``state_reserved_bytes`` (the slabs')."""
+        return {**super().counters(),
+                "state_bytes": sum(self.state_bytes(r) for r in self.slot_of),
+                "state_reserved_bytes": self.reserved_bytes()}
 
     def copy_prefix(self, src_rid: int, dst_rid: int, length: int) -> None:
         # exact-prefix only: the recurrent state *is* the whole context

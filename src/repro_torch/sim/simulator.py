@@ -152,7 +152,7 @@ class Simulator(RuntimeCore):
             for t in self.fault_injector.event_times():
                 self._push(t, self._on_fault_due)
 
-        # Motivation experiment (§3.2 "lagging instance scheduling"): legacy
+        # Motivation experiment (§3.2 "lagging instance scheduling"): role-bound
         # systems pay a reload/drain penalty per flip. Arrow's stateless
         # instances make it 0; flip_latency>0 simulates DistServe/Splitwise-
         # style role changes to quantify what statelessness buys.

@@ -100,7 +100,7 @@ def test_masked_write_equals_the_index_write(rows, dtype):
 
 
 def test_greedy_decode_equals_the_fused_decode():
-    """The function the graph captures gives ``ssm_decode_only``'s tokens
+    """The function the graph captures gives ``ssm_decode``'s tokens
     and state on greedy rows, a parked and a free slot beside them."""
     cfg = smoke()
     p = params_of(cfg)
@@ -110,10 +110,10 @@ def test_greedy_decode_equals_the_fused_decode():
     a = random_cache(cfg, B, 4)
     b = {k: t.clone() for k, t in a.items()}
     zeros = np.zeros(B, np.float32)
-    want = fs.ssm_decode_only(cfg, p, a["conv"], a["ssm"],
-                              torch.as_tensor(toks), np.arange(B), zeros,
-                              np.ones(B, np.float32), np.zeros(B, np.int32),
-                              np.arange(B, dtype=np.int32), active)
+    want = fs.ssm_decode(cfg, p, a["conv"], a["ssm"], torch.as_tensor(toks),
+                         np.arange(B), zeros, np.ones(B, np.float32),
+                         np.zeros(B, np.int32), np.arange(B, dtype=np.int32),
+                         active)
     got = fs.ssm_decode_greedy(cfg, p, b["conv"], b["ssm"],
                                torch.as_tensor(toks), torch.as_tensor(active))
     assert got.dtype == torch.int32 and torch.equal(got, want)

@@ -319,7 +319,6 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import repro_torch.kernels, repro_torch.traces\n"
         "import repro_torch.models.ssm, repro_torch.models.hybrid\n"
         "import repro_torch.kernels.ssd_scan, repro_torch.kernels.rglru_scan\n"
-        "import repro_torch.bench.bench_engine_step\n"
         "import repro_torch.bench.bench_speculative\n"
         "import repro_torch.sim, repro_torch.sim.policies\n"
         "import repro_torch.models.api, repro_torch.models.moe\n"

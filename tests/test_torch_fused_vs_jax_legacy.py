@@ -1,16 +1,16 @@
-"""The legacy (pre-fusion) step mode of the PyTorch port, on the CPU
-(``device="cpu"``), against the port's fused step and the JAX engine's
-legacy mode.
+"""The port's fused step, on the CPU (``device="cpu"``), against the JAX
+engine's legacy (pre-fusion) step mode, which stays as the reference; the
+port has no step mode of its own but the fused one.
 
 With the JAX parameters of ``PRNGKey(7)`` carried across by the weight
-bridge (float32 on both sides): legacy and fused clusters give the same
-greedy streams over chunked prefill (the mirror of
-``tests/test_engine.py::test_fused_step_matches_legacy_streams``), equal to
-the JAX legacy cluster's; legacy and fused instances give the same sampled
-stream (the mirror of
-``tests/test_sampling.py::test_fused_vs_legacy_sampled_streams``), equal to
-the JAX legacy instance's, on both attention paths. Legacy is refused for
-the ssm and hybrid families, and an unknown step mode is refused.
+bridge (float32 on both sides): the fused cluster gives the JAX legacy
+cluster's greedy streams over chunked prefill (the mirror of
+``tests/test_engine.py::test_fused_step_matches_legacy_streams``); the
+fused instance gives the JAX legacy instance's sampled stream (the mirror
+of ``tests/test_sampling.py::test_fused_vs_legacy_sampled_streams``), on
+both attention paths; a prompt prefilled in fused chunks leaves a valid
+``pos_map`` and continues the whole-prompt stream. A cluster asked for
+any other step mode refuses.
 
 The JAX side runs in the non-partitionable threefry mode the engine's
 golden pins were recorded under (set by a fixture and restored afterwards).
@@ -55,7 +55,7 @@ def instance_stream(inst, rid, prompt, n_new, sp=None):
     return [int(t) for t in inst.generated[rid][:n_new]]
 
 
-def _cluster_streams(cls, req_cls, slo_cls, cfg, params, mode, **kw):
+def _cluster_streams(cls, req_cls, slo_cls, cfg, params, **kw):
     """5 requests of 8-39 tokens in 16-token chunks (the mirror of the
     JAX fused-vs-legacy cluster test)."""
     rng = np.random.default_rng(21)
@@ -63,7 +63,7 @@ def _cluster_streams(cls, req_cls, slo_cls, cfg, params, mode, **kw):
              .astype(np.int32), int(rng.integers(2, 6))) for _ in range(5)]
     cluster = cls(cfg, n_instances=2, n_prefill=1, n_slots=4, capacity=128,
                   slo=slo_cls(ttft=5.0, tpot=2.0), params=params,
-                  chunk_tokens=16, step_mode=mode, **kw)
+                  chunk_tokens=16, **kw)
     handles = [cluster.submit(req_cls(rid=i, arrival=0.0, input_len=len(p),
                                       output_len=n), prompt=p)
                for i, (p, n) in enumerate(reqs)]
@@ -72,20 +72,17 @@ def _cluster_streams(cls, req_cls, slo_cls, cfg, params, mode, **kw):
     return {h.rid: [int(t) for t in h.tokens] for h in handles}
 
 
-def test_legacy_cluster_matches_fused_and_jax(setup):
+def test_fused_cluster_matches_jax_legacy_cluster(setup):
     jcfg, jparams, tcfg, tparams = setup
-    legacy = _cluster_streams(ArrowEngineCluster, Request, SLO, tcfg,
-                              tparams, "legacy", device="cpu")
     fused = _cluster_streams(ArrowEngineCluster, Request, SLO, tcfg,
-                             tparams, "fused", device="cpu")
+                             tparams, device="cpu")
     jlegacy = _cluster_streams(JCluster, JRequest, JSLO, jcfg, jparams,
-                               "legacy")
-    assert legacy == fused
-    assert legacy == jlegacy
+                               step_mode="legacy")
+    assert fused == jlegacy
 
 
 @pytest.mark.parametrize("impl", ["reference", "hopper"])
-def test_legacy_sampled_stream_matches_fused_and_jax(setup, impl):
+def test_fused_sampled_stream_matches_jax_legacy_instance(setup, impl):
     jcfg, jparams, tcfg, tparams = setup
     cfg = tcfg.replace(attn_impl=impl)
     prompt = np.random.default_rng(123).integers(
@@ -94,24 +91,19 @@ def test_legacy_sampled_stream_matches_fused_and_jax(setup, impl):
     fused = instance_stream(EngineInstance(0, cfg, tparams, n_slots=4,
                                            capacity=128, device="cpu"),
                             9, prompt, 10, sp=sp)
-    legacy = instance_stream(EngineInstance(1, cfg, tparams, n_slots=4,
-                                            capacity=128, device="cpu",
-                                            step_mode="legacy"),
-                             9, prompt, 10, sp=sp)
     jlegacy = instance_stream(
         JInstance(1, jcfg, jparams, n_slots=4, capacity=128,
                   step_mode="legacy"), 9, prompt, 10,
         sp=JSamplingParams(temperature=0.9, top_p=0.8, seed=3))
-    assert legacy == fused
-    assert legacy == jlegacy
+    assert fused == jlegacy
 
 
 @pytest.mark.parametrize("impl", ["reference", "hopper"])
-def test_legacy_chunks_continue_the_stream(setup, impl):
-    """A 40-token prompt prefilled in legacy chunks of 16 and 24 (pad
-    positions invalidated through the host pos_map round trip) leaves the
-    slot the whole-prompt prefill leaves, and the sampled stream goes on
-    as the fused instance's."""
+def test_fused_chunks_continue_the_stream(setup, impl):
+    """A 40-token prompt prefilled in fused chunks of 16 and 24 (the first
+    chunk's pad positions invalidated on the device) leaves the slot the
+    whole-prompt prefill leaves, and the sampled stream goes on as the
+    whole-prompt instance's."""
     _, _, tcfg, tparams = setup
     cfg = tcfg.replace(attn_impl=impl)
     prompt = np.random.default_rng(9).integers(
@@ -121,7 +113,7 @@ def test_legacy_chunks_continue_the_stream(setup, impl):
                                           capacity=128, device="cpu"),
                            1, prompt, 8, sp=sp)
     inst = EngineInstance(0, cfg, tparams, n_slots=4, capacity=128,
-                          device="cpu", step_mode="legacy")
+                          device="cpu")
     inst.set_sampling(1, sp)
     assert inst.run_prefill_chunk(1, prompt[:16], 0, 40) is None
     row = inst.kv.pos_map[inst.kv.slot_of[1]]
@@ -134,14 +126,8 @@ def test_legacy_chunks_continue_the_stream(setup, impl):
     assert got == want
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
-def test_legacy_is_refused_for_recurrent_families(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(ValueError, match=cfg.family):
-        EngineInstance(0, cfg, None, device="cpu", step_mode="legacy")
-
-
-def test_unknown_step_mode_is_refused(setup):
+def test_cluster_refuses_other_step_modes(setup):
     _, _, tcfg, tparams = setup
     with pytest.raises(ValueError, match="step_mode"):
-        EngineInstance(0, tcfg, tparams, device="cpu", step_mode="eager")
+        ArrowEngineCluster(tcfg, params=tparams, step_mode="legacy",
+                           device="cpu")

@@ -7,9 +7,9 @@ machine that has only the port's dependencies:
 
 Shapes follow tests/test_kernels.py, plus the engine's main-path shapes at
 qwen3-1.7b, mamba2-370m and recurrentgemma-9b width, and the speculative
-verify's few query rows at unaligned offsets. Two engine tests hold the
-speculative and legacy step modes' streams to the fused sequential ones on
-the kernels, in float32. Tolerances: attention
+verify's few query rows at unaligned offsets. An engine test holds the
+speculative step's streams to the fused sequential ones on the kernels, in
+float32. Tolerances: attention
 float32 at 2e-5 (other summation orders), bfloat16 at 2e-2 (one bf16
 rounding of the output); the scans those of tests/test_kernels.py, ssd_scan
 at 2e-4 (the chunked form against the sequential recurrence) and
@@ -501,20 +501,6 @@ def test_speculative_streams_equal_sequential_f32(cuda):
         torch.backends.cuda.matmul.allow_tf32 = old
     assert spec == seq
     assert counts["flash_chunk_op"] > 0 and counts["paged_attention_op"] > 0
-
-
-def test_legacy_streams_equal_fused_f32(cuda):
-    """The legacy step on the kernels gives the fused step's streams id
-    for id in float32, TF32 off."""
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        cfg, params = _f32_model(cuda)
-        fused = _streams(cfg, params, cuda)
-        legacy = _streams(cfg, params, cuda, step_mode="legacy")
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
-    assert legacy == fused
 
 
 def test_kernels_refuse_inputs_that_require_grad(cuda):

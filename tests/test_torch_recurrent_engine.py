@@ -162,7 +162,7 @@ def test_payload_bytes_do_not_grow_with_context(setup):
     _, _, tcfg, tparams = setup
     inst = torch_instance(tcfg, tparams)
     assert isinstance(inst.kv, SLOTS[tcfg.arch_id])
-    assert inst.kv.needs_active_mask and not inst.kv.supports_speculation
+    assert not inst.kv.supports_speculation
     assert inst.kv.prefix_reuse == "exact"
 
     def wire_bytes(rid, n):

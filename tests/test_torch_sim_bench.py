@@ -236,7 +236,8 @@ def test_every_simulator_takes_the_seam(monkeypatch, results):
 
 def test_runner_names_the_jax_modules_in_order():
     """``repro_torch.bench.run`` runs the JAX runner's modules in the JAX
-    runner's order."""
+    runner's order, all but its race of the JAX engine's two step modes
+    (the port has one)."""
     import ast
     import re
 
@@ -255,8 +256,8 @@ def test_runner_names_the_jax_modules_in_order():
 
     jax_order = calls(ROOT / "benchmarks" / "run.py")
     port_order = calls(ROOT / "src" / "repro_torch" / "bench" / "run.py")
-    assert port_order == jax_order
+    assert port_order == [n for n in jax_order if n != "bench_engine_step"]
     assert len(jax_order) == 17
     doc = importlib.import_module("repro_torch.bench").__doc__
-    for name in jax_order:
+    for name in port_order:
         assert re.search(rf"\b{name}\b", doc), name

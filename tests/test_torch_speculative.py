@@ -195,9 +195,6 @@ def test_draft_layers_must_truncate_the_model(setup):
     with pytest.raises(ValueError, match="draft_layers"):
         EngineInstance(0, tcfg, tparams, device="cpu", speculate=2,
                        draft_layers=tcfg.n_layers)
-    with pytest.raises(ValueError, match="fused"):
-        EngineInstance(0, tcfg, tparams, device="cpu", speculate=2,
-                       step_mode="legacy")
     inst = EngineInstance(0, tcfg, tparams, device="cpu", speculate=2)
     assert inst.speculate == 2
     assert inst.draft_layers == max(1, tcfg.n_layers // 2)

@@ -4,7 +4,7 @@ instance, later ones too; and on a small dense and a small Mamba-2 cluster
 that serve a burst with a migration, a run without a tracer records
 nothing and serves the same streams as one with it, spans nest, and each
 dispatched step's counters count what the instance itself was given and
-holds."""
+holds; and each family's dispatched steps carry their counter names."""
 import math
 
 import numpy as np
@@ -23,6 +23,13 @@ ARCHS = ["qwen3-1.7b", "mamba2-370m"]
 # 32-token chunks, so steps mix chunks and decode rows
 BURST = [(0.0, 20, 6), (0.0, 70, 5), (0.02, 41, 7), (0.05, 9, 4),
          (0.08, 90, 6)]
+# the counter names of a dispatched step's instance.dispatch span, by family
+# (the harness's span readers and tools/trace_cell.py read them by name)
+DENSE_COUNTERS = {"decode_rows", "batch_rows", "prompt_tokens", "kv_tokens",
+                  "kv_reserved", "graph_replays", "graph_captures"}
+STATE_COUNTERS = {"decode_rows", "batch_rows", "prompt_tokens", "kv_tokens",
+                  "kv_reserved", "state_bytes", "state_reserved_bytes",
+                  "chunk_calls", "graph_replays", "graph_captures"}
 
 
 class StepClock:
@@ -242,3 +249,23 @@ def test_constant_state_counters_sum_to_the_slabs_and_chunks(runs):
         -(-n // 32) for _, n, _ in BURST)
     dense = runs["qwen3-1.7b"][True][0].tracer
     assert not any("chunk_calls" in v for v in dense.counts().values())
+
+
+@pytest.mark.parametrize("arch,names", [
+    ("qwen3-1.7b", DENSE_COUNTERS), ("mamba2-370m", STATE_COUNTERS),
+    ("recurrentgemma-9b", STATE_COUNTERS)])
+def test_dispatch_spans_carry_the_family_counter_names(arch, names):
+    """A request served in two chunks, migrated and decoded: every
+    dispatched step of a dense, ssm and hybrid cluster carries exactly its
+    family's counter names."""
+    c = ArrowEngineCluster(get_smoke_config(arch), n_instances=2, n_slots=2,
+                           capacity=64, chunk_tokens=32, device="cpu")
+    c.tracer = tr = Tracer(c.clock)
+    h = c.submit(Request(0, arrival=0.0, input_len=40, output_len=4),
+                 prompt=np.arange(1, 41, dtype=np.int32))
+    c.drain(timeout=120)
+    assert h.done and c.migration_log
+    cnt = tr.counts()
+    got = [set(cnt[i]) for i, n in enumerate(tr.names)
+           if n == "instance.dispatch" and i in cnt]
+    assert len(got) > 2 and all(g == names for g in got)
