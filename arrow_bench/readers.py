@@ -8,6 +8,7 @@ the line.
 """
 from __future__ import annotations
 
+import bisect
 from typing import List, Optional
 
 from arrow_bench import peaks
@@ -130,6 +131,24 @@ def step_mfu(run) -> Optional[float]:
     return 100.0 * f / (t * peaks.BF16_FLOPS) if f and t > 0 else None
 
 
+def covered(busy, spans) -> float:
+    """Seconds of ``busy`` (sorted, disjoint intervals) inside each of
+    ``spans``, summed over ``spans`` (which may overlap): by the running
+    sum of ``busy``'s lengths at each span's ends."""
+    starts = [a for a, _ in busy]
+    cum = [0.0]
+    for a, b in busy:
+        cum.append(cum[-1] + (b - a))
+
+    def upto(x):
+        i = bisect.bisect_right(starts, x)
+        if not i:
+            return 0.0
+        a, b = busy[i - 1]
+        return cum[i - 1] + min(b, x) - a
+    return sum(max(0.0, upto(d) - upto(c)) for c, d in spans)
+
+
 def idle_frac(run) -> Optional[float]:
     """Share of the slice's engine time with nothing running on the
     device."""
@@ -140,9 +159,7 @@ def idle_frac(run) -> Optional[float]:
     t = sum(b - a for a, b in work)
     if t <= 0:
         return None
-    busy = sum(max(0.0, min(b, d) - max(a, c))
-               for a, b in p.busy() for c, d in work)
-    return 1.0 - busy / t
+    return 1.0 - covered(p.busy(), work) / t
 
 
 def pass_ms(run) -> Optional[float]:

@@ -128,7 +128,7 @@ def build_cluster(cell, params, device, seed: int):
         n_prefill=m["n_prefill"], n_slots=m["n_slots"],
         capacity=m["capacity"], slo=SLO(m["slo_ttft_s"], m["slo_tpot_s"]),
         seed=seed, params=params, chunk_tokens=m["chunk_tokens"],
-        policy=m["policy"], step_mode="fused", device=device)
+        policy=m["policy"], device=device)
 
 
 def warm_up(cluster, cell, seed: int, vocab: int) -> None:

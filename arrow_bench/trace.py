@@ -17,6 +17,7 @@ profile's collection take several times its span), else from ``events()``.
 """
 from __future__ import annotations
 
+import heapq
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
@@ -68,7 +69,10 @@ class Profile:
     def idle_by_host(self, spans, k: int = 10):
         """Idle device time inside the slice, by the innermost host span
         (``spans``: (start, end, label) on the cluster clock) around each
-        idle gap's middle; outside every span: "harness loop"."""
+        idle gap's middle: the shortest of those with start <= middle <=
+        end, the earliest in ``spans`` among equals; outside every span:
+        "harness loop". One sweep: the gaps' middles rise, so a span that
+        ends before one ends before every later one."""
         gaps, t = [], self.start
         for a, b in self.busy():
             if a > t:
@@ -76,12 +80,19 @@ class Profile:
             t = max(t, b)
         if self.end > t:
             gaps.append((t, self.end))
+        order = sorted(range(len(spans)), key=lambda i: spans[i][0])
+        heap: list = []                 # (length, index, end) of open spans
+        j = 0
         tot = {}
         for a, b in gaps:
             mid = 0.5 * (a + b)
-            inner = [s for s in spans if s[0] <= mid <= s[1]]
-            label = min(inner, key=lambda s: s[1] - s[0])[2] if inner \
-                else "harness loop"
+            while j < len(order) and spans[order[j]][0] <= mid:
+                s = spans[order[j]]
+                heapq.heappush(heap, (s[1] - s[0], order[j], s[1]))
+                j += 1
+            while heap and heap[0][2] < mid:
+                heapq.heappop(heap)
+            label = spans[heap[0][1]][2] if heap else "harness loop"
             tot[label] = tot.get(label, 0.0) + (b - a)
         return sorted(([n, s] for n, s in tot.items()),
                       key=lambda x: -x[1])[:k]
